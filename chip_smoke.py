@@ -8,19 +8,23 @@ Phases, one JSON line each; any failed check raises (non-zero exit):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
-2. each kernel against its plain version on the card, at the campaign
-   path's shape (S=1, λ=3072, n=1000) and a ragged one (S=3, λ=37, n=45,
-   one all-zero-weight slot), float64 (max relative error ≤ 1e-12) and
-   float32 (≤ 1e-4); C′ must be exactly symmetric;
+2. each kernel against its plain version on the card, at the shapes of
+   phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
+   f1 instance's coefficients) and a ragged one (S=3, λ=37, n=45, one
+   all-zero-weight slot), float64 (max relative error ≤ 1e-12) and float32
+   (≤ 1e-4); C′ must be exactly symmetric;
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
-   their launch counts; plus the same ladder at n=8 on the card and on the
-   CPU's plain path, whose traces must agree;
+   their launch counts and the time of one batched ``eigh`` at that width;
+   plus the ladder at n=8 on the card and on the CPU's plain path (f8, and
+   f1/f2 through the eval-fused kernel; both schedules), whose traces must
+   agree;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
    eval-fused sample kernel (n=40, λ_max=3072, 100 000 evaluations);
-5. the ``{"kernels": [...]}`` line: per kernel its launches on the main
-   path, its time, the plain version's time and one PyTorch call's time at
-   the phase-3 shape, and the least time the card could take (bound).
+5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3 and
+   4) its launches, its time, the plain version's time, one PyTorch call's
+   time and the least time the card could take (bound) at that path's
+   shape; the top-level numbers are the phase-3 shape's.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -39,18 +43,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import ipop, ladder  # noqa: E402
+from repro_torch.core import cmaes, ipop, ladder  # noqa: E402
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
-from repro_torch.kernels import _build, cma_gen, ref  # noqa: E402
+from repro_torch.kernels import _build, cma_gen, ops, ref  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FP64 on the tensor cores and
 # FP32 outside them; HBM3 bandwidth.
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
-MAIN = dict(S=1, lam=3072, n=1000)
+MAIN = dict(S=1, lam=3072, n=1000)        # phase 3, f8
+RESTARTS = dict(S=1, lam=3072, n=40)      # phase 4, f1 through the eval kernel
 RAGGED = dict(S=3, lam=37, n=45)
+#: the paths whose launches are counted: shape and the fid of the fitness
+PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1)}
 SOURCES = {
     "cma_gen_sample": ("src/repro_torch/kernels/csrc/cma_gen_sample.cu",
                        "src/repro/kernels/cma_gen.py:91"),
@@ -76,7 +83,10 @@ def gpu_line() -> str:
 # inputs, made from a seed with numpy
 # ---------------------------------------------------------------------------
 
-def sample_inputs(S, lam, n, dtype, dev, seed=0):
+def sample_inputs(S, lam, n, dtype, dev, seed=0, fid=None):
+    """Sample-kernel operands and separable coefficients in the kernel's
+    per-slot layout: those of BBOB ``fid`` (instance 1, as phase 4 runs
+    it), or else random ones mixing both modes and an invalid slot."""
     rng = np.random.default_rng(seed)
     B = torch.linalg.qr(torch.tensor(rng.normal(size=(S, n, n)),
                                      device=dev))[0].contiguous()
@@ -87,19 +97,25 @@ def sample_inputs(S, lam, n, dtype, dev, seed=0):
                 sigma=t(rng.uniform(0.1, 0.5, size=S)), B=B,
                 D=t(rng.uniform(0.5, 2.0, size=(S, n))),
                 Z=t(rng.normal(size=(S, lam, n))))
-    sep = bbob.SepCoeffs(
-        scale=t(np.power(10.0, 6.0 * np.arange(n) / max(n - 1.0, 1.0))
-                ).expand(S, n),
-        shift=t(rng.uniform(-4.0, 4.0, size=(S, n))),
-        f_opt=t(np.round(rng.uniform(-100, 100, size=S), 2)),
-        mode=torch.tensor([1, 0, 1][:S] if S > 1 else [1], dtype=torch.int32,
-                          device=dev),
-        valid=torch.tensor([True, True, False][:S] if S > 1 else [True],
-                           device=dev))
-    cast = lambda v: v.to(dtype).contiguous()     # noqa: E731
-    return ({k: cast(v) for k, v in args.items()},
-            sep._replace(scale=cast(sep.scale), shift=cast(sep.shift),
-                         f_opt=cast(sep.f_opt)))
+    if fid is not None:
+        sep = bbob.separable_coeffs(bbob.make_instance(fid, n, 1, device=dev),
+                                    (fid,))
+    else:
+        sep = bbob.SepCoeffs(
+            scale=t(np.power(10.0, 6.0 * np.arange(n) / max(n - 1.0, 1.0))
+                    ).expand(S, n),
+            shift=t(rng.uniform(-4.0, 4.0, size=(S, n))),
+            f_opt=t(np.round(rng.uniform(-100, 100, size=S), 2)),
+            mode=torch.tensor([1, 0, 1][:S] if S > 1 else [1],
+                              dtype=torch.int32, device=dev),
+            valid=torch.tensor([True, True, False][:S] if S > 1 else [True],
+                               device=dev))
+    return ({k: v.to(dtype).contiguous() for k, v in args.items()},
+            ops.slot_sep(sep, S, dtype))
+
+
+def kernel_eval(a, sep):
+    return cma_gen.gen_sample_eval(*a.values(), *sep)
 
 
 def update_inputs(S, lam, n, dtype, dev, seed=1, zero_slot=True):
@@ -199,18 +215,14 @@ def phase_kernels(dev):
     """Every kernel against its plain version; returns the max errors."""
     errs = {k: 0.0 for k in SOURCES}
     rows = []
-    for shape in (MAIN, RAGGED):
+    for shape, fid in ((MAIN, None), (RESTARTS, 1), (RAGGED, None)):
         for dtype in (torch.float64, torch.float32):
             S, lam, n = shape["S"], shape["lam"], shape["n"]
-            a, sep = sample_inputs(S, lam, n, dtype, dev)
+            a, sep = sample_inputs(S, lam, n, dtype, dev, fid=fid)
             got = cma_gen.gen_sample(**a)
             want = ref.gen_sample(**a)
             e1 = compare("cma_gen_sample", got, want, dtype)
-            sep_k = (sep.scale, sep.shift, sep.f_opt, sep.mode,
-                     sep.valid.to(torch.int32))
-            got = cma_gen.gen_sample_eval(**a, scale=sep_k[0],
-                                          shift=sep_k[1], fopt=sep_k[2],
-                                          mode=sep_k[3], valid=sep_k[4])
+            got = kernel_eval(a, sep)
             want = ref.gen_sample_eval(**a, sep=sep)
             e2 = compare("cma_gen_sample_eval", got, want, dtype)
             u = update_inputs(S, lam, n, dtype, dev)
@@ -255,28 +267,49 @@ def phase_main_path(dev):
         raise AssertionError("f8 run: trace is not a finite best-so-far "
                              "record of every generation")
 
-    # the same ladder, small, on the card and on the CPU's plain path
+    # one batched eigh at this width (eigen_interval is 1 at λ_max = 3072,
+    # so the ladder runs one every generation; it syncs with the host)
+    C = update_inputs(1, 12, n, torch.float64, dev)["C"]
+    eigh_ms = time_ms(lambda: cmaes.eigen_decompose(C), reps=3)
+    emit({"phase": "main_path_f8", "n": n, "lam_max": 3072, "gens": gens,
+          "ms_per_gen": wall / gens * 1e3, "eigh_ms": eigh_ms,
+          "launches": launches,
+          "best_f_minus_fopt": res.best_f - float(inst.f_opt),
+          "small_ladder_card_vs_cpu_rel_err": small_ladders(dev)})
+    return launches
+
+
+def small_ladders(dev):
+    """The ladder at n=8 on the card and on the CPU's plain path, f8 (sample
+    kernel) and f1/f2 through ``fusable_fitness`` (eval-fused kernel), both
+    schedules: every trace leaf must agree (ints exactly, floats to 1e-9).
+    Returns the largest relative error per run."""
     small = dict(n=8, lam_start=8, kmax_exp=2, eigen_interval=24,
                  max_evals=10**6)
-    traces = []
-    for d in (dev, "cpu"):
-        f_s, _ = bbob.make_fitness(8, 8, 1, device=d)
-        traces.append(ladder.LadderEngine(**small, device=d).run(3, f_s, 24)[1])
-    worst = 0.0
-    for a, b in zip(*traces):
-        a, b = a.cpu(), b.cpu()
-        if a.dtype.is_floating_point:
-            worst = max(worst, float(((a - b).abs()
-                                      / b.abs().clamp_min(1e-300)).max()))
-        elif not torch.equal(a, b):
-            raise AssertionError("card and CPU ladder traces differ")
-    if worst > 1e-9:
-        raise AssertionError(f"card vs CPU ladder: rel err {worst:.3e}")
-    emit({"phase": "main_path_f8", "n": n, "lam_max": 3072, "gens": gens,
-          "ms_per_gen": wall / gens * 1e3, "launches": launches,
-          "best_f_minus_fopt": res.best_f - float(inst.f_opt),
-          "small_ladder_card_vs_cpu_rel_err": worst})
-    return launches
+    worst = {}
+    for fid in (8, 1, 2):
+        for schedule in ("sequential", "concurrent"):
+            traces = []
+            for d in (dev, "cpu"):
+                fn, inst = bbob.make_fitness(fid, 8, 1, device=d)
+                fn = bbob.fusable_fitness(inst, (fid,), fn) \
+                    if fid in bbob.FUSABLE_FIDS else fn
+                eng = ladder.LadderEngine(**small, schedule=schedule, device=d)
+                traces.append(eng.run(3, fn, 24)[1])
+            err = 0.0
+            for a, b in zip(*traces):
+                a, b = a.cpu(), b.cpu()
+                if a.dtype.is_floating_point:
+                    err = max(err, float(((a - b).abs()
+                                          / b.abs().clamp_min(1e-300)).max()))
+                elif not torch.equal(a, b):
+                    raise AssertionError(f"f{fid} {schedule}: card and CPU "
+                                         "ladder traces differ")
+            if err > 1e-9:
+                raise AssertionError(f"f{fid} {schedule}: card vs CPU ladder "
+                                     f"rel err {err:.3e}")
+            worst[f"f{fid}_{schedule}"] = err
+    return worst
 
 
 def phase_ipop(dev):
@@ -311,14 +344,12 @@ def phase_ipop(dev):
     return launches
 
 
-def phase_table(dev, errs, launches):
-    """Times at the phase-3 shape (float64) and the bound of each kernel."""
-    S, lam, n = MAIN["S"], MAIN["lam"], MAIN["n"]
-    dt = torch.float64
-    a, sep = sample_inputs(S, lam, n, dt, dev)
-    sep_k = dict(scale=sep.scale, shift=sep.shift, fopt=sep.f_opt,
-                 mode=sep.mode, valid=sep.valid.to(torch.int32))
-    u = update_inputs(S, lam, n, dt, dev, zero_slot=False)
+def kernel_work(shape, fid, dev):
+    """Per kernel, float64 at ``shape``: (kernel call, plain call, one
+    PyTorch call of the same product, operations, bytes)."""
+    S, lam, n = shape["S"], shape["lam"], shape["n"]
+    a, sep = sample_inputs(S, lam, n, torch.float64, dev, fid=fid)
+    u = update_inputs(S, lam, n, torch.float64, dev, zero_slot=False)
     lam_nz = int((u["w"] != 0).sum())
     esz = 8
     zd = (a["Z"] * a["D"][:, None, :]).contiguous()
@@ -326,13 +357,13 @@ def phase_table(dev, errs, launches):
     ys = (u["w"].sqrt()[..., None] * u["Y"]).contiguous()
     yst = ys.transpose(-1, -2)
     gemm_flops = 2.0 * S * lam * n * n
-    work = {
+    return {
         "cma_gen_sample": (
             lambda: cma_gen.gen_sample(**a), lambda: ref.gen_sample(**a),
             lambda: torch.matmul(zd, bt), gemm_flops,
             esz * S * (3 * lam * n + n * n + 2 * n + 1)),
         "cma_gen_sample_eval": (
-            lambda: cma_gen.gen_sample_eval(**a, **sep_k),
+            lambda: kernel_eval(a, sep),
             lambda: ref.gen_sample_eval(**a, sep=sep),
             lambda: torch.matmul(zd, bt), gemm_flops + 4.0 * S * lam * n,
             esz * S * (2 * lam * n + lam + n * n + 4 * n + 1)),
@@ -342,15 +373,35 @@ def phase_table(dev, errs, launches):
             S * (n * (n + 1) * lam_nz + 2.0 * lam_nz * n + 4.0 * n * n),
             esz * (S * (3 * n * n + lam_nz * n + lam + 8 * n + 7))),
     }
+
+
+def phase_table(dev, errs, launches):
+    """Per kernel: its launches on each path (``launches`` maps a path to
+    its counts), and its time, bound, plain and library time at each path's
+    shape; the top-level numbers are those at the phase-3 shape, the
+    launches those of both paths together."""
+    work = {p: kernel_work(shape, fid, dev)
+            for p, (shape, fid) in PATHS.items()}
     rows = []
-    for name, (kern, plain, lib, flops, nbytes) in work.items():
-        b_ms, b_by = bound(flops, nbytes, dt)
+    for name in SOURCES:
+        paths = {}
+        for p, w in work.items():
+            kern, plain, lib, flops, nbytes = w[name]
+            b_ms, b_by = bound(flops, nbytes, torch.float64)
+            shape = PATHS[p][0]
+            paths[p] = {"shape": [shape["S"], shape["lam"], shape["n"]],
+                        "launches": launches[p][name], "ms": time_ms(kern),
+                        "plain_ms": time_ms(plain), "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": time_ms(lib)}
+        top = paths["main_path_f8"]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": time_ms(kern),
-            "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lib)})
+            "replaces": SOURCES[name][1],
+            "launches": sum(launches[p][name] for p in PATHS),
+            "max_abs_err": errs[name],
+            **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "paths": paths})
     emit({"kernels": rows})
 
 
@@ -360,9 +411,8 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_build(dev)
     errs = phase_kernels(dev)
-    l3 = phase_main_path(dev)
-    l4 = phase_ipop(dev)
-    launches = {k: l3[k] + l4[k] for k in l3}
+    launches = {"main_path_f8": phase_main_path(dev),
+                "ipop_f1_restarts": phase_ipop(dev)}
     phase_table(dev, errs, launches)
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

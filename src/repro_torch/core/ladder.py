@@ -23,6 +23,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import cmaes, prng
+from repro_torch.core.device import resolve_device
 from repro_torch.core.params import (CMAConfig, default_max_iter,
                                      ladder_params, select_params)
 from repro_torch.kernels import ops
@@ -223,17 +224,6 @@ def scan_eigen_blocks(step_fn: Callable, carry, interval: int,
                                 zip(*traces)))
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the CUDA device; without one, raise rather than run
-    on the CPU unasked."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                               "plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 @dataclasses.dataclass
 class LadderEngine:
     """Stacked IPOP ladder: all rungs in one padded slot-stacked state."""
@@ -306,6 +296,9 @@ class LadderEngine:
     def gen_step(self, carry: LadderCarry, base_key: torch.Tensor,
                  fitness_fn: Callable, eigen: str = "lazy"
                  ) -> Tuple[LadderCarry, LadderTrace]:
+        """One generation.  On the card a ``fitness_fn`` with separable
+        coefficients must come from ``ops.slot_fitness`` (``run_scan`` lays
+        them out once per run)."""
         return slots_gen_step(
             self.cfg, self.sparams, carry, base_key, fitness_fn,
             max_evals=self.max_evals, kmax_exp=self.kmax_exp,
@@ -317,6 +310,8 @@ class LadderEngine:
         whole number of eigen blocks."""
         interval = int(self.cfg.eigen_interval)
         n_blocks = -(-int(total_gens) // interval)
+        fitness_fn = ops.slot_fitness(fitness_fn, self.n_slots,
+                                      self.cfg.tdtype)
         return scan_eigen_blocks(
             lambda c, eigen: self.gen_step(c, base_key, fitness_fn, eigen),
             self.init_carry(base_key), interval, n_blocks)

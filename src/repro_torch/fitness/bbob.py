@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.device import resolve_device
 from repro_torch.core.eval_dispatch import FusableEval
 
 #: fids expressible as Σᵢ scaleᵢ·g(xᵢ − shiftᵢ)² + f_opt with an elementwise
@@ -61,8 +62,10 @@ def _orth(key: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 def make_instance(fid: int, n: int, instance: int = 0,
                   dtype=torch.float64, device=None) -> BBOBInstance:
-    """Instance ``(fid, n, instance)``, equal to ``repro``'s."""
+    """Instance ``(fid, n, instance)``, equal to ``repro``'s.  ``device=None``
+    means the CUDA device, as for the entry points, and raises without one."""
     _check_fid(fid)
+    device = resolve_device(device)
     key = prng.PRNGKey(int(np.uint32(1_000_003 * fid + 97 * n + instance)),
                        device=device)
     k_xopt, k_fopt, k_R, k_Q = prng.split(key, 8)[:4]
@@ -131,12 +134,13 @@ def make_fitness(fid: int, n: int, instance: int = 0, dtype=torch.float64,
 
 class SepCoeffs(NamedTuple):
     """f(X) = Σᵢ scaleᵢ·g(Xᵢ − shiftᵢ)² + f_opt, g picked by ``mode``
-    (0 identity, 1 t_osz); ``valid`` False poisons the value to NaN."""
+    (0 identity, 1 t_osz); ``valid`` False (0) poisons the value to NaN.
+    ``ops.slot_sep`` lays the leaves out per slot for the sample kernel."""
     scale: torch.Tensor    # (n,)
     shift: torch.Tensor    # (n,) x_opt
     f_opt: torch.Tensor    # ()
     mode: torch.Tensor     # () int32
-    valid: torch.Tensor    # () bool
+    valid: torch.Tensor    # () bool (int32 when laid out per slot)
 
 
 def separable_coeffs(inst: BBOBInstance, branch_fids: tuple) -> SepCoeffs:
@@ -166,7 +170,7 @@ def separable_eval(X: torch.Tensor, sep: SepCoeffs) -> torch.Tensor:
     t = X - sep.shift[..., None, :]
     tg = torch.where(sep.mode[..., None, None] == 1, t_osz(t), t)
     val = torch.sum(sep.scale[..., None, :] * tg ** 2, -1) + sep.f_opt[..., None]
-    return torch.where(sep.valid[..., None], val, torch.nan)
+    return torch.where(sep.valid[..., None] != 0, val, torch.nan)
 
 
 def fusable_fitness(inst: BBOBInstance, branch_fids: tuple, fn):

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.eval_dispatch import FusableEval
 from repro_torch.kernels import cma_gen, ref
 
 IMPL_CHOICES = ("auto",)
@@ -40,21 +41,33 @@ def gen_sample(m, sigma, B, D, Z):
     return ref.gen_sample(m, sigma, B, D, Z)
 
 
-def _sep_slots(sep, S: int, n: int, dtype):
-    """Broadcast ``bbob.SepCoeffs`` to the kernel's per-slot layout."""
-    return (sep.scale.to(dtype).expand(S, n).contiguous(),
-            sep.shift.to(dtype).expand(S, n).contiguous(),
-            sep.f_opt.to(dtype).expand(S).contiguous(),
-            sep.mode.to(torch.int32).expand(S).contiguous(),
-            sep.valid.to(torch.int32).expand(S).contiguous())
+def slot_sep(sep, S: int, dtype):
+    """``bbob.SepCoeffs`` in the sample kernel's per-slot layout: scale and
+    shift (S, n) and f_opt (S,) in ``dtype``, mode and valid (S,) int32,
+    all contiguous."""
+    n = sep.shift.shape[-1]
+    return sep._replace(scale=sep.scale.to(dtype).expand(S, n).contiguous(),
+                        shift=sep.shift.to(dtype).expand(S, n).contiguous(),
+                        f_opt=sep.f_opt.to(dtype).expand(S).contiguous(),
+                        mode=sep.mode.to(torch.int32).expand(S).contiguous(),
+                        valid=sep.valid.to(torch.int32).expand(S).contiguous())
+
+
+def slot_fitness(fitness_fn, S: int, dtype):
+    """``fitness_fn`` with its separable coefficients, if it carries any,
+    laid out once per run by ``slot_sep``; otherwise ``fitness_fn``."""
+    sep = getattr(fitness_fn, "sep", None)
+    if sep is None:
+        return fitness_fn
+    return FusableEval(fitness_fn.fn, slot_sep(sep, S, dtype))
 
 
 def gen_sample_eval(m, sigma, B, D, Z, sep):
-    """Eval-fused sampling (Y, F) for a separable fid: X is never written."""
+    """Eval-fused sampling (Y, F) for a separable fid: X is never written.
+    On the card ``sep`` must be laid out per slot (``slot_sep``); the plain
+    version also takes shared leaves."""
     if _on_cuda(Z):
-        S, _, n = Z.shape
-        return cma_gen.gen_sample_eval(m, sigma, B, D, Z,
-                                       *_sep_slots(sep, S, n, Z.dtype))
+        return cma_gen.gen_sample_eval(m, sigma, B, D, Z, *sep)
     return ref.gen_sample_eval(m, sigma, B, D, Z, sep)
 
 

@@ -158,6 +158,30 @@ def test_ops_on_cpu_take_the_plain_version():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("fid", [1, 2])
+def test_slot_sep_layout_gives_the_same_values(fid):
+    """``ops.slot_sep`` lays a fitness's coefficients out per slot once per
+    run, as the eval-fused kernel takes them; the plain path gives the same
+    values from either layout, and ``slot_fitness`` leaves other closures
+    alone."""
+    S, lam, n = 3, 5, 6
+    a = _inputs(S, lam, n, seed=fid)
+    fn, inst = tb.make_fitness(fid, n, 1, device="cpu")
+    fit = tb.fusable_fitness(inst, (fid,), fn)
+    slot = ops.slot_fitness(fit, S, torch.float64)
+    for leaf, shape, dt in zip(slot.sep, [(S, n), (S, n), (S,), (S,), (S,)],
+                               [torch.float64] * 3 + [torch.int32] * 2):
+        assert leaf.shape == shape and leaf.dtype == dt
+        assert leaf.is_contiguous()
+    assert slot.fn is fn
+    assert ops.slot_fitness(fn, S, torch.float64) is fn
+    ks = ("m", "sigma", "B", "D", "Z")
+    got = ops.gen_sample_eval(*(_t(a[k]) for k in ks), slot.sep)
+    want = tref.gen_sample_eval(*(_t(a[k]) for k in ks), fit.sep)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     a = _inputs(1, 4, 3)
     ks = ("m", "sigma", "B", "D", "Z")

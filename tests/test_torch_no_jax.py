@@ -50,3 +50,13 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
         ipop.run_ipop(fn, 3, 0, max_evals=100)
     with pytest.raises(RuntimeError, match="CUDA"):
         ladder.LadderEngine(n=3)
+
+
+def test_fitness_factories_follow_the_device_rule(monkeypatch):
+    """The BBOB factories resolve ``device=None`` as the entry points do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bbob.make_fitness(8, 3, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bbob.make_instance(1, 3, 1)
+    assert bbob.make_instance(1, 3, 1, device="cpu").x_opt.device.type == "cpu"
