@@ -4,7 +4,8 @@ plain PyTorch versions.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failed check raises (non-zero exit):
+Phases, one JSON line each with its seconds; any failed check raises
+(non-zero exit):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
@@ -12,19 +13,35 @@ Phases, one JSON line each; any failed check raises (non-zero exit):
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
    f1 instance's coefficients) and a ragged one (S=3, λ=37, n=45, one
    all-zero-weight slot), float64 (max relative error ≤ 1e-12) and float32
-   (≤ 1e-4); C′ must be exactly symmetric;
+   (≤ 1e-4); C′ must be exactly symmetric.  The in-kernel RNG kernels are
+   fed seed words at and above 2³¹, and must be prefix-stable kernel
+   against kernel, bit for bit: the first 12 rows of a λ=3072 call are a
+   λ=12 call (Z, Y, X and F);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
    plus the ladder at n=8 on the card and on the CPU's plain path (f8, and
    f1/f2 through the eval-fused kernel; both schedules), whose traces must
    agree;
+3b. the same problem through ``run_ipop(backend="bucketed",
+   impl="kernel_rng")`` for 12·64 evaluations: 64 generations on rung 0,
+   padded to 12 rows instead of 3072, sampled by the in-kernel RNG kernel;
+   its launches, segments, host pulls (segments + 1), padding and ms per
+   generation beside phase 3's;
+3c. the bucketed path at n=8, λ_start=16 on the card and on the CPU (f8,
+   and f1/f2 through the eval-fused kernels; ``auto`` and ``kernel_rng``):
+   ints exact, each descent's best-so-far record to 1e-9 of its largest
+   magnitude; and on the card bucketed against ladder, ints exact;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
    eval-fused sample kernel (n=40, λ_max=3072, 100 000 evaluations);
-5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3 and
-   4) its launches, its time, the plain version's time, one PyTorch call's
-   time and the least time the card could take (bound) at that path's
-   shape; the top-level numbers are the phase-3 shape's.
+4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
+   in-kernel RNG eval kernel), then again with the speculative segment
+   driver (``overlap=True``), whose trace must be bit-identical;
+5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
+   4 and 4b) its launches, its time, the plain version's time, one
+   PyTorch call's time (none for the Z stream alone) and the least time
+   the card could take (bound) at that path's shape; the top-level numbers
+   are the phase-3 shape's, so rows 1 and 3 are timed on the same GEMM.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -32,6 +49,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -43,7 +61,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.core import cmaes, ipop, ladder  # noqa: E402
+from repro_torch.core import bucketed, cmaes, ipop, ladder  # noqa: E402
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
 from repro_torch.kernels import _build, cma_gen, ops, ref  # noqa: E402
@@ -53,19 +71,33 @@ from repro_torch.kernels import _build, cma_gen, ops, ref  # noqa: E402
 PEAK_FLOPS = {torch.float64: 67e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
-MAIN = dict(S=1, lam=3072, n=1000)        # phase 3, f8
-RESTARTS = dict(S=1, lam=3072, n=40)      # phase 4, f1 through the eval kernel
+LAM_START, KMAX = 12, 8                   # λ_max = 12·2⁸ = 3072
+GENS = 64                                 # phase 3's generations
+BUDGET = 100_000                          # phase 4's evaluations
+MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
+RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
-#: the paths whose launches are counted: shape and the fid of the fitness
-PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1)}
+#: the paths whose launches are counted: shape and the fid of the fitness.
+#: The bucketed paths' shapes are those their kernels ran at (rung 0 of
+#: phase 3b; the widest bucket phase 4b reached), filled in by main().
+PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1),
+         "bucketed_rng_f8": (dict(MAIN, lam=LAM_START), None),
+         "bucketed_rng_f1_restarts": (None, 1)}
+_SAMPLE_CU = "src/repro_torch/kernels/csrc/cma_gen_sample.cu"
 SOURCES = {
-    "cma_gen_sample": ("src/repro_torch/kernels/csrc/cma_gen_sample.cu",
-                       "src/repro/kernels/cma_gen.py:91"),
-    "cma_gen_sample_eval": ("src/repro_torch/kernels/csrc/cma_gen_sample.cu",
-                            "src/repro/kernels/cma_gen.py:322"),
+    "cma_gen_sample": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:91"),
+    "cma_gen_sample_eval": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:322"),
     "cma_gen_update": ("src/repro_torch/kernels/csrc/cma_gen_update.cu",
                        "src/repro/kernels/cma_gen.py:447"),
+    "cma_gen_sample_rng": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:311"),
+    "cma_gen_sample_rng_eval": (_SAMPLE_CU,
+                                "src/repro/kernels/cma_gen.py:337"),
+    "cma_sample_z_rng": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:362"),
 }
+#: operations per Z element of the counter stream, for the bound: about 100
+#: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
+#: multiplies, each counted as one
+RNG_OPS = 106
 
 
 def emit(obj) -> None:
@@ -116,6 +148,20 @@ def sample_inputs(S, lam, n, dtype, dev, seed=0, fid=None):
 
 def kernel_eval(a, sep):
     return cma_gen.gen_sample_eval(*a.values(), *sep)
+
+
+def seed_words(S, dev, seed=0):
+    """(S, 2) uint32 seed words held in int64, the first one ≥ 2³¹."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2 ** 32, size=(S, 2), dtype=np.uint64).astype(
+        np.int64)
+    w[0, 0] |= 2 ** 31
+    return torch.tensor(w, device=dev)
+
+
+def rng_args(a):
+    """The RNG kernels' operands from ``sample_inputs``' (Z is not used)."""
+    return {k: a[k] for k in ("m", "sigma", "B", "D")}
 
 
 def update_inputs(S, lam, n, dtype, dev, seed=1, zero_slot=True):
@@ -173,6 +219,12 @@ def compare(name, got, want, dtype):
     return worst_abs, worst_rel
 
 
+def same_bits(name, got, want):
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: not bit-identical")
+
+
 def time_ms(fn, reps=10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -219,38 +271,94 @@ def phase_kernels(dev):
         for dtype in (torch.float64, torch.float32):
             S, lam, n = shape["S"], shape["lam"], shape["n"]
             a, sep = sample_inputs(S, lam, n, dtype, dev, fid=fid)
+            seeds = seed_words(S, dev, seed=lam + n)
+            r = rng_args(a)
+            errs_here = {}
             got = cma_gen.gen_sample(**a)
             want = ref.gen_sample(**a)
-            e1 = compare("cma_gen_sample", got, want, dtype)
+            errs_here["cma_gen_sample"] = compare("cma_gen_sample", got, want,
+                                                  dtype)
             got = kernel_eval(a, sep)
             want = ref.gen_sample_eval(**a, sep=sep)
-            e2 = compare("cma_gen_sample_eval", got, want, dtype)
+            errs_here["cma_gen_sample_eval"] = compare(
+                "cma_gen_sample_eval", got, want, dtype)
             u = update_inputs(S, lam, n, dtype, dev)
             got = cma_gen.gen_update(**u)
             want = ref_update(u)
-            e3 = compare("cma_gen_update", got, want, dtype)
+            errs_here["cma_gen_update"] = compare("cma_gen_update", got,
+                                                  want, dtype)
             if not torch.equal(got[0], got[0].transpose(-1, -2)):
                 raise AssertionError("cma_gen_update: C' is not symmetric")
+            got = cma_gen.gen_sample_rng(**r, seeds=seeds, lam=lam)
+            want = ref.gen_sample_rng(**r, seeds=seeds, lam=lam)
+            errs_here["cma_gen_sample_rng"] = compare(
+                "cma_gen_sample_rng", got, want, dtype)
+            got = cma_gen.gen_sample_rng_eval(*r.values(), seeds, lam, *sep)
+            want = ref.gen_sample_rng_eval(*r.values(), seeds, lam, sep)
+            errs_here["cma_gen_sample_rng_eval"] = compare(
+                "cma_gen_sample_rng_eval", got, want, dtype)
+            got = cma_gen.sample_z_rng(seeds, lam, n, dtype)
+            want = ref.sample_z_rng(seeds, lam, n, dtype)
+            errs_here["cma_sample_z_rng"] = compare(
+                "cma_sample_z_rng", (got,), (want,), dtype)
             torch.cuda.synchronize()
-            for k, e in zip(SOURCES, (e1, e2, e3)):
-                errs[k] = max(errs[k], e[0]) if dtype == torch.float64 \
-                    else errs[k]
+            for k, e in errs_here.items():
+                if dtype == torch.float64:
+                    errs[k] = max(errs[k], e[0])
                 rows.append({"kernel": k, "shape": [S, lam, n],
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1]})
-    emit({"phase": "kernels_vs_plain", "checks": rows})
+    emit({"phase": "kernels_vs_plain", "checks": rows,
+          "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
+
+
+def rng_prefix_checks(dev):
+    """Kernel against kernel, bit for bit: the first rows and columns of a
+    wide call are a narrow call (the bucket property).  Seed words ≥ 2³¹
+    are read as unsigned: the kernel's stream is the plain version's, whose
+    words are uint32 by construction, and the words' int64 twins below 0
+    give the same bits."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        S, lam, n = MAIN["S"], MAIN["lam"], MAIN["n"]
+        a, sep = sample_inputs(S, lam, n, dtype, dev, fid=1)
+        r, seeds = rng_args(a), seed_words(S, dev, seed=5)
+        wide = cma_gen.sample_z_rng(seeds, lam, n, dtype)
+        same_bits("cma_sample_z_rng prefix",
+                  (cma_gen.sample_z_rng(seeds, 12, n, dtype),
+                   cma_gen.sample_z_rng(seeds, 12, 7, dtype)),
+                  (wide[:, :12], wide[:, :12, :7]))
+        wide = cma_gen.gen_sample_rng(*r.values(), seeds, lam)
+        same_bits("cma_gen_sample_rng prefix",
+                  cma_gen.gen_sample_rng(*r.values(), seeds, 12),
+                  (t[:, :12] for t in wide))
+        wide = cma_gen.gen_sample_rng_eval(*r.values(), seeds, lam, *sep)
+        same_bits("cma_gen_sample_rng_eval prefix",
+                  cma_gen.gen_sample_rng_eval(*r.values(), seeds, 12, *sep),
+                  (t[:, :12] for t in wide))
+        high = seeds.clone()
+        high[:, 1] = 2 ** 32 - 1 - high[:, 1] % 7
+        got = cma_gen.sample_z_rng(high, 64, n, dtype)
+        compare("cma_sample_z_rng unsigned seeds", (got,),
+                (ref.sample_z_rng(high, 64, n, dtype),), dtype)
+        same_bits("cma_sample_z_rng negative twins",
+                  (cma_gen.sample_z_rng(high - 2 ** 32, 64, n, dtype),),
+                  (got,))
+        out[str(dtype)] = True
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_main_path(dev):
     """run_ipop on f8 at full width through the sample and update kernels,
     then the same ladder at n=8 on the card and on the CPU."""
-    n, gens = 1000, 64
+    n, gens, lam_max = MAIN["n"], GENS, MAIN["lam"]
     fn, inst = bbob.make_fitness(8, n, 1, device=dev)
     torch.cuda.synchronize()
     cma_gen.reset_launches()
     t0 = time.perf_counter()
-    res = ipop.run_ipop(fn, n, 11, lam_start=12, kmax_exp=8,
+    res = ipop.run_ipop(fn, n, 11, lam_start=LAM_START, kmax_exp=KMAX,
                         max_evals=10**9, total_gens=gens, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -258,7 +366,7 @@ def phase_main_path(dev):
     if launches["cma_gen_sample"] != gens or launches["cma_gen_update"] != gens:
         raise AssertionError(f"main path launches {launches}, expected "
                              f"{gens} of the sample and update kernels")
-    if not np.isfinite(res.best_f) or res.total_fevals != 12 * gens:
+    if not np.isfinite(res.best_f) or res.total_fevals != LAM_START * gens:
         raise AssertionError(f"f8 run: best_f {res.best_f}, fevals "
                              f"{res.total_fevals}")
     d0 = res.descents[0]
@@ -269,14 +377,17 @@ def phase_main_path(dev):
 
     # one batched eigh at this width (eigen_interval is 1 at λ_max = 3072,
     # so the ladder runs one every generation; it syncs with the host)
-    C = update_inputs(1, 12, n, torch.float64, dev)["C"]
+    C = update_inputs(1, LAM_START, n, torch.float64, dev)["C"]
     eigh_ms = time_ms(lambda: cmaes.eigen_decompose(C), reps=3)
-    emit({"phase": "main_path_f8", "n": n, "lam_max": 3072, "gens": gens,
-          "ms_per_gen": wall / gens * 1e3, "eigh_ms": eigh_ms,
+    ms_per_gen = wall / gens * 1e3
+    emit({"phase": "main_path_f8", "n": n, "lam_max": lam_max, "gens": gens,
+          "ms_per_gen": ms_per_gen, "eigh_ms": eigh_ms,
           "launches": launches,
           "best_f_minus_fopt": res.best_f - float(inst.f_opt),
+          "padding": {"useful_evals": res.total_fevals,
+                      "padded_evals": gens * lam_max},
           "small_ladder_card_vs_cpu_rel_err": small_ladders(dev)})
-    return launches
+    return launches, ms_per_gen
 
 
 def small_ladders(dev):
@@ -312,14 +423,158 @@ def small_ladders(dev):
     return worst
 
 
+@contextlib.contextmanager
+def bucketed_record():
+    """What the segment driver does inside the block: its segment records,
+    its traces and its schedule pulls (``pull_schedule`` calls)."""
+    rec = {"segments": [], "traces": [], "pulls": 0}
+    drive, pull = bucketed.drive_segments, bucketed.pull_schedule
+
+    def drive_rec(*args, **kw):
+        out = drive(*args, **kw)
+        rec["segments"] += out[2]
+        rec["traces"].append(out[1])
+        return out
+
+    def pull_rec(carry, **kw):
+        rec["pulls"] += 1
+        return pull(carry, **kw)
+    bucketed.drive_segments, bucketed.pull_schedule = drive_rec, pull_rec
+    try:
+        yield rec
+    finally:
+        bucketed.drive_segments, bucketed.pull_schedule = drive, pull
+
+
+def bucketed_padding(rec, lam_start, kmax_exp):
+    """Useful against padded evaluations of a recorded bucketed run: each
+    segment step pays its bucket's width, each executed generation is
+    worth its rung's λ."""
+    useful = sum(bucketed._useful_evals_per_rung(
+        rec["traces"][0], lam_start, kmax_exp).values())
+    padded = sum(sg["gens"] * lam_start * 2 ** sg["bucket"]
+                 for sg in rec["segments"])
+    return {"useful_evals": useful, "padded_evals": padded,
+            "waste": padded / max(useful, 1)}
+
+
+def check_bucketed_run(name, rec, launches, sample_kernel):
+    """One sample and one update launch per segment step, none of the
+    Z-operand kernels, and one pull per boundary."""
+    steps = sum(sg["gens"] for sg in rec["segments"])
+    others = {k: v for k, v in launches.items()
+              if k not in (sample_kernel, "cma_gen_update")}
+    if (launches[sample_kernel] != steps or launches["cma_gen_update"] != steps
+            or any(others.values())):
+        raise AssertionError(f"{name}: launches {launches} for {steps} "
+                             "generations")
+    if rec["pulls"] != len(rec["segments"]) + 1:
+        raise AssertionError(f"{name}: {rec['pulls']} pulls for "
+                             f"{len(rec['segments'])} segments")
+    return steps
+
+
+def phase_bucketed_main(dev, ladder_ms_per_gen):
+    """Phase 3's problem through the bucketed backend and the in-kernel RNG
+    sample kernel, for 64 generations of rung 0."""
+    n, gens, lam_max = MAIN["n"], GENS, MAIN["lam"]
+    fn, inst = bbob.make_fitness(8, n, 1, device=dev)
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    with bucketed_record() as rec:
+        res = ipop.run_ipop(fn, n, 11, lam_start=LAM_START, kmax_exp=KMAX,
+                            max_evals=LAM_START * gens, backend="bucketed",
+                            impl="kernel_rng", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cma_gen.LAUNCHES)
+    steps = check_bucketed_run("bucketed f8", rec, launches,
+                               "cma_gen_sample_rng")
+    d0 = res.descents[0]
+    if (steps != gens or res.total_fevals != LAM_START * gens
+            or not np.isfinite(res.best_f)
+            or not np.array_equal(d0.gens, np.arange(1, gens + 1))
+            or not (np.diff(d0.best_f) <= 0).all()):
+        raise AssertionError(f"bucketed f8 run: {steps} steps, fevals "
+                             f"{res.total_fevals}, best_f {res.best_f}")
+    padding = bucketed_padding(rec, LAM_START, KMAX)
+    if padding["padded_evals"] != padding["useful_evals"]:
+        raise AssertionError(f"bucketed f8 run: padding {padding} on rung 0")
+    emit({"phase": "bucketed_rng_f8", "n": n, "lam_max": lam_max, "gens": gens,
+          "ms_per_gen": wall / gens * 1e3,
+          "ladder_ms_per_gen": ladder_ms_per_gen, "launches": launches,
+          "segments": rec["segments"], "pulls": rec["pulls"],
+          "padding": padding, "ladder_padded_evals": gens * lam_max,
+          "best_f_minus_fopt": res.best_f - float(inst.f_opt)})
+    return launches
+
+
+def compare_runs(name, a, b):
+    """IPOPResults: the ints (fevals, descents, generations, stop reasons)
+    exactly; returns the largest error of a descent's best-so-far record
+    relative to its largest magnitude, which the caller bounds.  (Relative
+    to each value it would be meaningless where the record crosses 0 on
+    its way to a negative f_opt.)  best_x is not bounded: near a converged
+    Rosenbrock optimum a 1e-13 change of f moves x along the valley by far
+    more."""
+    ints = lambda r: [r.total_fevals] + [  # noqa: E731
+        (d.k_exp, d.lam, d.stop_reason, d.gens.tolist(), d.fevals.tolist())
+        for d in r.descents]
+    if ints(a) != ints(b):
+        raise AssertionError(f"{name}: descents or fevals differ")
+    err = 0.0
+    for da, db in zip(a.descents, b.descents):
+        x, y = np.asarray(da.best_f), np.asarray(db.best_f)
+        err = max(err, float(np.abs(x - y).max()
+                             / max(np.abs(y).max(), 1e-300)))
+    return err
+
+
+def phase_small_bucketed(dev):
+    """The bucketed path at n=8 on the card and on the CPU, f8 and f1/f2
+    through ``fusable_fitness``, under both sampling tiers: ints exact,
+    floats to 1e-9; on the card, bucketed against ladder, ints exact.
+
+    λ_start = 16 = 2n: with fewer than n weighted rows (μ < n) the first
+    covariances have a repeated eigenvalue, whose eigenvectors cuSOLVER and
+    LAPACK choose differently, and the two runs then sample different
+    populations from the same distribution."""
+    kw = dict(lam_start=16, kmax_exp=2, max_evals=6000)
+    worst = {}
+    for fid in (8, 1, 2):
+        for impl in ("auto", "kernel_rng"):
+            runs = {}
+            for d, backend in ((dev, "bucketed"), ("cpu", "bucketed"),
+                               (dev, "ladder")):
+                fn, inst = bbob.make_fitness(fid, 8, 1, device=d)
+                fn = bbob.fusable_fitness(inst, (fid,), fn) \
+                    if fid in bbob.FUSABLE_FIDS else fn
+                runs[(d == "cpu", backend)] = ipop.run_ipop(
+                    fn, 8, 3, impl=impl, backend=backend, device=d, **kw)
+            name = f"f{fid}_{impl}"
+            card, cpu = runs[(False, "bucketed")], runs[(True, "bucketed")]
+            err = compare_runs(f"{name} card vs CPU", card, cpu)
+            if err > 1e-9:
+                raise AssertionError(f"{name}: card vs CPU rel err {err:.3e}")
+            compare_runs(f"{name} bucketed vs ladder", card,
+                         runs[(False, "ladder")])
+            worst[name] = {"best_f_rel_err": err, "best_x_max_abs_diff":
+                           float(np.abs(card.best_x - cpu.best_x).max()),
+                           "descents": [[d.lam, len(d.gens), d.stop_reason]
+                                        for d in card.descents]}
+    emit({"phase": "small_bucketed_card_vs_cpu", "n": 8, **kw,
+          "runs": worst})
+
+
 def phase_ipop(dev):
-    n, budget = 40, 100_000
+    n, budget = RESTARTS["n"], BUDGET
     fn, inst = bbob.make_fitness(1, n, 1, device=dev)
     fit = bbob.fusable_fitness(inst, (1,), fn)
     torch.cuda.synchronize()
     cma_gen.reset_launches()
     t0 = time.perf_counter()
-    res = ipop.run_ipop(fit, n, 5, lam_start=12, kmax_exp=8,
+    res = ipop.run_ipop(fit, n, 5, lam_start=LAM_START, kmax_exp=KMAX,
                         max_evals=budget, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -330,7 +585,7 @@ def phase_ipop(dev):
         raise AssertionError(f"f1 run: best_f - f_opt = {err}")
     if len(res.descents) < 2:
         raise AssertionError(f"f1 run: {len(res.descents)} descent(s)")
-    if any(d.lam != 12 * 2 ** d.k_exp for d in res.descents):
+    if any(d.lam != LAM_START * 2 ** d.k_exp for d in res.descents):
         raise AssertionError(f"f1 run: population sizes {lams}")
     if res.total_fevals > budget:
         raise AssertionError(f"f1 run spent {res.total_fevals} > {budget}")
@@ -342,6 +597,60 @@ def phase_ipop(dev):
           "total_fevals": res.total_fevals, "wall_s": wall,
           "launches": launches})
     return launches
+
+
+def phase_bucketed_restarts(dev):
+    """Phase 4's run through the bucketed backend and the in-kernel RNG
+    eval kernel; then again with the speculative driver, bit-identical.
+    Returns the launches and the widest λ the run reached."""
+    n, budget = RESTARTS["n"], BUDGET
+    fn, inst = bbob.make_fitness(1, n, 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    kw = dict(lam_start=LAM_START, kmax_exp=KMAX, max_evals=budget,
+              impl="kernel_rng")
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    with bucketed_record() as rec:
+        res = ipop.run_ipop(fit, n, 5, backend="bucketed", device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cma_gen.LAUNCHES)
+    steps = check_bucketed_run("bucketed f1", rec, launches,
+                               "cma_gen_sample_rng_eval")
+    err = res.best_f - float(inst.f_opt)
+    if not err <= 1e-8:
+        raise AssertionError(f"bucketed f1 run: best_f - f_opt = {err}")
+    if len(res.descents) < 2 or any(d.lam != LAM_START * 2 ** d.k_exp
+                                    for d in res.descents):
+        raise AssertionError("bucketed f1 run: descents "
+                             f"{[d.lam for d in res.descents]}")
+    if res.total_fevals > budget:
+        raise AssertionError(f"bucketed f1 run spent {res.total_fevals}")
+
+    eng = bucketed.BucketedLadderEngine(n=n, overlap=True, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bucketed_record() as rec_o:
+        bucketed.run_bucketed_single(eng, 5, fit)
+    torch.cuda.synchronize()
+    wall_o = time.perf_counter() - t0
+    same_bits("overlap=True trace", rec_o["traces"][0], rec["traces"][0])
+    segs_o = rec_o["segments"]
+    emit({"phase": "bucketed_rng_f1_restarts", "n": n,
+          "best_f_minus_fopt": err,
+          "descents": [[d.lam, len(d.gens), d.stop_reason]
+                       for d in res.descents],
+          "total_fevals": res.total_fevals, "steps": steps, "wall_s": wall,
+          "ms_per_step": wall / steps * 1e3, "launches": launches,
+          "segments": len(rec["segments"]), "pulls": rec["pulls"],
+          "padding": bucketed_padding(rec, LAM_START, KMAX),
+          "overlap": {"wall_s": wall_o, "segments": len(segs_o),
+                      "spec_hits": sum(sg["spec_hit"] for sg in segs_o),
+                      "spec_s": sum(sg.get("spec_s", 0.0) for sg in segs_o),
+                      "sync_s": sum(sg["sync_s"] for sg in segs_o),
+                      "pulls": rec_o["pulls"]}})
+    return launches, max(d.lam for d in res.descents)
 
 
 def kernel_work(shape, fid, dev):
@@ -357,6 +666,9 @@ def kernel_work(shape, fid, dev):
     ys = (u["w"].sqrt()[..., None] * u["Y"]).contiguous()
     yst = ys.transpose(-1, -2)
     gemm_flops = 2.0 * S * lam * n * n
+    rng_flops = float(RNG_OPS) * S * lam * n
+    seeds = seed_words(S, dev)
+    r = list(rng_args(a).values())
     return {
         "cma_gen_sample": (
             lambda: cma_gen.gen_sample(**a), lambda: ref.gen_sample(**a),
@@ -372,6 +684,21 @@ def kernel_work(shape, fid, dev):
             lambda: torch.matmul(yst, ys),
             S * (n * (n + 1) * lam_nz + 2.0 * lam_nz * n + 4.0 * n * n),
             esz * (S * (3 * n * n + lam_nz * n + lam + 8 * n + 7))),
+        "cma_gen_sample_rng": (
+            lambda: cma_gen.gen_sample_rng(*r, seeds, lam),
+            lambda: ref.gen_sample_rng(*r, seeds, lam),
+            lambda: torch.matmul(zd, bt), gemm_flops + rng_flops,
+            esz * S * (2 * lam * n + n * n + 2 * n + 1) + 8 * S),
+        "cma_gen_sample_rng_eval": (
+            lambda: cma_gen.gen_sample_rng_eval(*r, seeds, lam, *sep),
+            lambda: ref.gen_sample_rng_eval(*r, seeds, lam, sep),
+            lambda: torch.matmul(zd, bt),
+            gemm_flops + 4.0 * S * lam * n + rng_flops,
+            esz * S * (lam * n + lam + n * n + 4 * n + 1) + 8 * S),
+        "cma_sample_z_rng": (
+            lambda: cma_gen.sample_z_rng(seeds, lam, n),
+            lambda: ref.sample_z_rng(seeds, lam, n), None, rng_flops,
+            esz * S * lam * n + 8 * S),
     }
 
 
@@ -392,7 +719,8 @@ def phase_table(dev, errs, launches):
             paths[p] = {"shape": [shape["S"], shape["lam"], shape["n"]],
                         "launches": launches[p][name], "ms": time_ms(kern),
                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": time_ms(lib)}
+                        "bound_by": b_by,
+                        "library_ms": None if lib is None else time_ms(lib)}
         top = paths["main_path_f8"]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -409,11 +737,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
     dev = torch.device("cuda")
-    phase_build(dev)
-    errs = phase_kernels(dev)
-    launches = {"main_path_f8": phase_main_path(dev),
-                "ipop_f1_restarts": phase_ipop(dev)}
-    phase_table(dev, errs, launches)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("1_build", phase_build, dev)
+    errs = timed("2_kernels", phase_kernels, dev)
+    launches = {}
+    launches["main_path_f8"], ladder_ms = timed("3_main_path",
+                                                phase_main_path, dev)
+    launches["bucketed_rng_f8"] = timed("3b_bucketed", phase_bucketed_main,
+                                        dev, ladder_ms)
+    timed("3c_small_bucketed", phase_small_bucketed, dev)
+    launches["ipop_f1_restarts"] = timed("4_ipop", phase_ipop, dev)
+    launches["bucketed_rng_f1_restarts"], widest = timed(
+        "4b_bucketed_restarts", phase_bucketed_restarts, dev)
+    PATHS["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
+    timed("5_table", phase_table, dev, errs, launches)
+    emit({"phase_seconds": seconds})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -138,8 +138,12 @@ def _finish_update(cfg: CMAConfig, params: CMAParams, state: CMAState,
                    f_sorted, x_best, n_evals, C_new, p_sigma_new, p_c_new,
                    y_w, eigen: str) -> CMAState:
     """The O(n) generation epilogue (``repro``'s ``cmaes._finish_update``):
-    mean and step size, the flat-fitness σ bump, the eigen refresh
-    (``"always"`` or ``"defer"``), the f_hist ring and the stop check."""
+    mean and step size, the flat-fitness σ bump, the eigen refresh, the
+    f_hist ring and the stop check.  ``eigen``: ``"always"`` refreshes B/D,
+    ``"defer"`` keeps them, ``"lazy"`` refreshes the slots whose cadence is
+    due (``gen + 1 − last_eigen_gen ≥ eigen_interval``).  As JAX's vmapped
+    ``lax.cond`` does, ``"lazy"`` decomposes every slot and selects per
+    slot; nothing is read back to the host."""
     f_best_gen = f_sorted[:, 0]
     c_sig, d_sig = params.c_sigma, params.d_sigma
 
@@ -159,9 +163,11 @@ def _finish_update(cfg: CMAConfig, params: CMAParams, state: CMAState,
         B_new, D_new = state.B, state.D
         last_eigen = state.last_eigen_gen
     elif eigen == "lazy":
-        raise NotImplementedError(
-            "eigen='lazy' is not ported; the ladder's nested eigen schedule "
-            "uses 'defer'/'always' (ROADMAP.md, queue A item 6)")
+        due = (state.gen + 1 - state.last_eigen_gen) >= cfg.eigen_interval
+        B_e, D_e = eigen_decompose(C_new)
+        B_new = torch.where(due[:, None, None], B_e, state.B)
+        D_new = torch.where(due[:, None], D_e, state.D)
+        last_eigen = torch.where(due, state.gen + 1, state.last_eigen_gen)
     else:
         raise ValueError(f"unknown eigen mode {eigen!r}")
 

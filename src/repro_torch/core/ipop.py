@@ -1,6 +1,6 @@
 """Sequential IPOP-CMA-ES (paper Alg. 2) — thin host wrapper over the
-ladder engine (port of the ``backend="ladder"`` part of
-``repro/core/ipop.py``).
+ladder engine (port of the ``backend="ladder"`` and ``backend="bucketed"``
+parts of ``repro/core/ipop.py``).
 
 ``run_ipop`` runs descents of population K·λ_start for K = 2⁰ … 2^kmax in
 order, restarting in place after each stop; the trace is moved to the host
@@ -13,6 +13,7 @@ from typing import Callable, List, NamedTuple
 
 import numpy as np
 
+from repro_torch.core import bucketed as bucketed_mod
 from repro_torch.core import ladder as ladder_mod
 
 
@@ -79,14 +80,32 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
              backend: str = "ladder", device=None) -> IPOPResult:
     """Paper Alg. 2 with multiplicative factor 2 and K_max = 2^kmax_exp.
 
-    ``key`` is an int seed or a (2,) key tensor (``core/prng.py``).
-    ``device=None`` runs on the CUDA device and raises without one.  Only
-    ``backend="ladder"`` is ported; the other backends raise
-    ``NotImplementedError`` (ROADMAP.md, queue A)."""
-    if backend != "ladder":
+    ``backend="ladder"`` runs the whole ladder at λ_max padding;
+    ``backend="bucketed"`` drives it through the rung-bucketed segments
+    (``core/bucketed.py``: work proportional to the live rung, sized by
+    the driver, so ``total_gens`` does not apply).  ``impl`` picks the
+    sampling tier on both (``kernels/ops.py``).  ``key`` is an int seed or
+    a (2,) key tensor (``core/prng.py``).  ``device=None`` runs on the
+    CUDA device and raises without one.  The JAX package's other backends
+    (``hostloop``, ``mesh``, ``service``) raise ``NotImplementedError``
+    (ROADMAP.md, queue A)."""
+    if backend == "bucketed":
+        if total_gens is not None:
+            raise ValueError("total_gens only applies to backend='ladder'; "
+                             "the segment driver sizes its own segments")
+        engine_b = bucketed_mod.BucketedLadderEngine(
+            n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
+            domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
+            device=device)
+        carry, trace = bucketed_mod.run_bucketed_single(engine_b, key,
+                                                        fitness_fn)
+        return _result_from_ladder(engine_b.full, carry, trace)
+    if backend in ("hostloop", "mesh", "service"):
         raise NotImplementedError(
-            f"backend={backend!r} is not ported; only 'ladder' "
-            "(ROADMAP.md, queue A items 8-11)")
+            f"backend={backend!r} is not ported; 'ladder' and 'bucketed' "
+            "are (ROADMAP.md, queue A items 9-11)")
+    if backend != "ladder":
+        raise ValueError(f"unknown backend {backend!r}")
     engine = ladder_mod.LadderEngine(
         n=n, lam_start=lam_start, kmax_exp=kmax_exp, schedule="sequential",
         max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,

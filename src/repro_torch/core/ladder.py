@@ -12,7 +12,11 @@ solver status on the host on a CUDA device, once per eigen block.)  The
 per-generation trace is stacked once, at the end of ``run_scan``.
 
 Schedules: ``sequential`` (one slot walks the ladder) and ``concurrent``
-(kmax+1 slots, one per rung).  Not ported yet (ROADMAP.md): the flat eigen
+(kmax+1 slots, one per rung).  ``impl`` picks the sampling tier
+(``kernels/ops.py``): the row-keyed draw handed to the sample kernel
+(``"auto"``) or the counter stream drawn inside it (``"kernel_rng"``).
+``slots_gen_step(bucket_cap=k)`` is the step of the rung-bucketed programs
+(``core/bucketed.py``).  Not ported yet (ROADMAP.md): the flat eigen
 schedule, campaigns over many problems, the strategies path.
 """
 from __future__ import annotations
@@ -68,11 +72,28 @@ def _tree_select(mask: torch.Tensor, a, b):
 
 def _slots_fused_update(cfg: CMAConfig, params_k, states: cmaes.CMAState,
                         kgs: torch.Tensor, fitness_fn: Callable,
-                        eigen: str) -> cmaes.CMAState:
-    """One fused generation over all slots from their sampling keys: the
-    row-keyed draw, then ``fused_generation``."""
-    Z = cmaes.sample_z(kgs, cfg.lam_max, cfg.n, cfg.tdtype)
-    return fused_generation(cfg, params_k, states, Z, fitness_fn, eigen)
+                        eigen: str, impl: str = "auto") -> cmaes.CMAState:
+    """One fused generation over all slots from their sampling keys ``kgs``
+    (S, 2).  Under ``"kernel_rng"`` the keys are the counter stream's seeds
+    and the sample kernel draws Z itself; otherwise the row-keyed draw is
+    made first and handed to ``fused_generation``."""
+    if ops.resolve_impl(impl) != "kernel_rng":
+        Z = cmaes.sample_z(kgs, cfg.lam_max, cfg.n, cfg.tdtype)
+        return fused_generation(cfg, params_k, states, Z, fitness_fn, eigen)
+    args = (states.m, states.sigma, states.B, states.D, kgs, cfg.lam_max)
+    sep = getattr(fitness_fn, "sep", None)
+    if sep is not None:
+        Y, F = ops.gen_sample_rng_eval(*args, sep)
+        return _generation_from_sample(cfg, params_k, states, Y, None, F,
+                                       eigen)
+    Y, X = ops.gen_sample_rng(*args)
+    return _generation_from_sample(cfg, params_k, states, Y, X,
+                                   _evaluate(fitness_fn, X), eigen)
+
+
+def _evaluate(fitness_fn: Callable, X: torch.Tensor) -> torch.Tensor:
+    S, lam, n = X.shape
+    return fitness_fn(X.reshape(S * lam, n)).reshape(S, lam)
 
 
 def fused_generation(cfg: CMAConfig, params_k, states: cmaes.CMAState,
@@ -80,18 +101,26 @@ def fused_generation(cfg: CMAConfig, params_k, states: cmaes.CMAState,
                      eigen: str) -> cmaes.CMAState:
     """One generation over all slots from a given draw Z (S, λ_max, n): the
     sample kernel (eval-fused when ``fitness_fn`` carries separable
-    coefficients), rank weights, the update kernel and the O(n) epilogue;
-    stopped slots keep their state."""
-    lam_max, n = cfg.lam_max, cfg.n
-    S = states.m.shape[0]
+    coefficients), then ``_generation_from_sample``."""
     sep = getattr(fitness_fn, "sep", None)
     if sep is not None:
-        X = None
         Y, F = ops.gen_sample_eval(states.m, states.sigma, states.B, states.D,
                                    Z, sep)
-    else:
-        Y, X = ops.gen_sample(states.m, states.sigma, states.B, states.D, Z)
-        F = fitness_fn(X.reshape(S * lam_max, n)).reshape(S, lam_max)
+        return _generation_from_sample(cfg, params_k, states, Y, None, F,
+                                       eigen)
+    Y, X = ops.gen_sample(states.m, states.sigma, states.B, states.D, Z)
+    return _generation_from_sample(cfg, params_k, states, Y, X,
+                                   _evaluate(fitness_fn, X), eigen)
+
+
+def _generation_from_sample(cfg: CMAConfig, params_k,
+                            states: cmaes.CMAState, Y: torch.Tensor,
+                            X: Optional[torch.Tensor], F: torch.Tensor,
+                            eigen: str) -> cmaes.CMAState:
+    """The rest of a generation once the population is sampled (X is None
+    on the eval-fused path): rank weights, the update kernel and the O(n)
+    epilogue; stopped slots keep their state."""
+    lam_max = cfg.lam_max
     rows = torch.arange(lam_max, device=F.device)
     F = torch.where(rows[None, :] < params_k.lam[:, None], F, torch.inf)
     if X is None:
@@ -140,32 +169,39 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
                    max_evals: int, kmax_exp: int,
                    schedule: str = "sequential",
                    domain: Tuple[float, float] = (-5.0, 5.0),
-                   eigen: str = "lazy") -> Tuple[LadderCarry, LadderTrace]:
+                   impl: str = "auto", eigen: str = "lazy",
+                   bucket_cap: Optional[int] = None
+                   ) -> Tuple[LadderCarry, LadderTrace]:
     """One generation over all slots: the budget gate, the fused update,
     the global best, and the in-place doubled-λ restart or retirement.
-    ``eigen`` is ``"defer"`` or ``"always"`` (``scan_eigen_blocks``); the
-    JAX package's per-descent ``"lazy"`` refresh is not ported."""
-    if eigen not in ("defer", "always"):
-        raise NotImplementedError(
-            f"eigen={eigen!r} is not ported; the nested eigen schedule uses "
-            "'defer'/'always' (ROADMAP.md, queue A item 6)")
+
+    ``eigen`` is ``"lazy"`` (per-descent cadence), or ``"defer"`` /
+    ``"always"`` as ``scan_eigen_blocks`` passes them.  ``bucket_cap`` is
+    the highest rung the executing program holds (``cfg``/``sparams`` are
+    then a bucket's, ``core/bucketed.py``): a slot on a higher rung is
+    parked (``ran`` False, state frozen) until the driver moves it to a
+    wider bucket.  ``None`` means the program spans the whole ladder."""
     S = carry.k_idx.shape[0]
     dev = carry.k_idx.device
     slot_ids = torch.arange(S, dtype=torch.int64, device=dev)
 
-    params_k = select_params(sparams, carry.k_idx.long())
+    gather_idx = (carry.k_idx if bucket_cap is None
+                  else torch.clamp(carry.k_idx, max=bucket_cap))
+    params_k = select_params(sparams, gather_idx.long())
     lam_k = params_k.lam.to(carry.total_fevals.dtype)
 
     # budget gate: a slot only starts a generation it can fully pay for;
     # concurrent slots are gated on the cumulative reservation before them
     runnable = carry.active
+    if bucket_cap is not None:
+        runnable = runnable & (carry.k_idx <= bucket_cap)
     reserve = torch.cumsum(torch.where(runnable, lam_k, 0), 0)
     ran = runnable & (carry.total_fevals + reserve <= max_evals)
 
     kds = slot_key(base_key, slot_ids, carry.incarnation)
     kgs = gen_key(kds, carry.states.gen)
     upd = _slots_fused_update(cfg, params_k, carry.states, kgs, fitness_fn,
-                              eigen)
+                              eigen, impl)
     new_states = _tree_select(ran, upd, carry.states)
 
     total_fevals = carry.total_fevals + torch.where(ran, lam_k, 0).sum()
@@ -302,7 +338,8 @@ class LadderEngine:
         return slots_gen_step(
             self.cfg, self.sparams, carry, base_key, fitness_fn,
             max_evals=self.max_evals, kmax_exp=self.kmax_exp,
-            schedule=self.schedule, domain=self.domain, eigen=eigen)
+            schedule=self.schedule, domain=self.domain, impl=self.impl,
+            eigen=eigen)
 
     def run_scan(self, base_key: torch.Tensor, fitness_fn: Callable,
                  total_gens: int) -> Tuple[LadderCarry, LadderTrace]:

@@ -133,6 +133,20 @@ def ladder_params(cfg: CMAConfig, lam_start: int, kmax_exp: int,
     return CMAParams(*(torch.stack(leaves) for leaves in zip(*rungs)))
 
 
+def bucket_config(cfg: CMAConfig, lam_bucket: int) -> CMAConfig:
+    """``cfg`` narrowed to one rung bucket's padding width: only ``lam`` and
+    ``lam_max`` change, every trajectory knob (tolerances, history length,
+    eigen cadence) is inherited, and an automatic ``max_iter`` is derived
+    again for the bucket's own λ."""
+    if lam_bucket > cfg.lam_max:
+        raise ValueError(f"lam_bucket={lam_bucket} exceeds "
+                         f"lam_max={cfg.lam_max}")
+    return dataclasses.replace(
+        cfg, lam=lam_bucket, lam_max=lam_bucket,
+        max_iter=None if getattr(cfg, "max_iter_auto", False)
+        else cfg.max_iter)
+
+
 def select_params(sparams: CMAParams, idx: torch.Tensor) -> CMAParams:
     """Gather rungs from a stacked ladder by an index tensor (on device)."""
     return CMAParams(*(leaf[idx] for leaf in sparams))

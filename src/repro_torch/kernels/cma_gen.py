@@ -7,6 +7,15 @@
   GEMM with per-tile row partials, then a fixed-order row reduce).
 * ``gen_update`` — replaces ``cma_gen_update``: (C′, p_σ′, p_c′, y_w); four
   vector launches, then the upper-triangle gram-plus-epilogue launch.
+* ``gen_sample_rng`` / ``gen_sample_rng_eval`` — replace
+  ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the two sample
+  kernels with Z drawn inside the kernel from per-slot seeds
+  (``csrc/threefry.cuh``); Z is never read or written.
+* ``sample_z_rng`` — replaces ``cma_sample_z_rng``: the counter stream Z
+  alone, one launch.
+
+The RNG wrappers take ``seeds`` (S, 2) as uint32 words held in int64, and
+``lam`` and ``n`` below 2¹⁶ (the counter is ``(row << 16) | col``).
 
 The design notes (what bounds each kernel and what the design does about
 it) head each source file.  The plain PyTorch versions are in
@@ -22,18 +31,23 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import RNG_MAX_DIM
 
 #: per-slot scalar coefficients of ``gen_update``, in column order
 COEF_FIELDS = ("c_sigma", "mu_eff", "c_c", "c_1", "c_mu", "chi_n", "gen1")
 
 LAUNCHES = {"cma_gen_sample": 0, "cma_gen_sample_eval": 0,
-            "cma_gen_update": 0}
+            "cma_gen_update": 0, "cma_gen_sample_rng": 0,
+            "cma_gen_sample_rng_eval": 0, "cma_sample_z_rng": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     ("cma_gen_sample", "cma_gen_sample"): [_P] * 7 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_gen_sample_eval"): [_P] * 13 + [_I] * 3 + [_P],
     ("cma_gen_update", "cma_gen_update"): [_P] * 14 + [_I] * 3 + [_P],
+    ("cma_gen_sample", "cma_gen_sample_rng"): [_P] * 7 + [_I] * 3 + [_P],
+    ("cma_gen_sample", "cma_gen_sample_rng_eval"): [_P] * 13 + [_I] * 3 + [_P],
+    ("cma_gen_sample", "cma_sample_z_rng"): [_P] * 2 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_gen_sample_tile_cols"): [],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -90,6 +104,38 @@ def _sample_operands(m, sigma, B, D, Z):
     return (S, lam, n), dt, dev, ptrs
 
 
+def _seed_words(seeds: torch.Tensor, lam: int, n: int) -> torch.Tensor:
+    """Checks the counter's range, then ``seeds`` (S, 2) int64 on CUDA;
+    returns the words as int32 with the uint32 bit patterns the kernel
+    reads (a word ≥ 2³¹ wraps to a negative int32)."""
+    if not (0 < lam < RNG_MAX_DIM and 0 < n < RNG_MAX_DIM):
+        raise ValueError(f"lam={lam} and n={n} must lie in [1, 2^16): the "
+                         "counter is (row << 16) | col")
+    if not seeds.is_cuda:
+        raise ValueError("seeds: the CUDA kernel takes CUDA tensors, got one "
+                         f"on {seeds.device}")
+    if seeds.dtype != torch.int64 or seeds.dim() != 2 or seeds.shape[1] != 2:
+        raise ValueError("seeds must be (S, 2) int64-held uint32 words, got "
+                         f"{tuple(seeds.shape)} {seeds.dtype}")
+    w = seeds & 0xFFFFFFFF
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32).contiguous()
+
+
+def _rng_operands(m, sigma, B, D, seeds, lam: int):
+    if B.dim() != 3 or B.dtype not in _SUFFIX:
+        raise ValueError("B must be (S, n, n) float32 or float64")
+    S, n, _ = B.shape
+    lam = int(lam)
+    words = _seed_words(seeds, lam, n)
+    dt, dev = B.dtype, B.device
+    ptrs = [_check("m", m, (S, n), dt, dev), _check("sigma", sigma, (S,), dt, dev),
+            _check("B", B, (S, n, n), dt, dev), _check("D", D, (S, n), dt, dev),
+            _check("seeds", words, (S, 2), torch.int32, dev)]
+    # the caller holds ``words`` until the launch: freed earlier, its block
+    # could be handed to an output allocated before the kernel runs
+    return (S, lam, n), dt, dev, ptrs, words
+
+
 def gen_sample(m, sigma, B, D, Z):
     """Y, X (S, λ, n) from m (S,n), sigma (S,), B (S,n,n), D (S,n), Z (S,λ,n)."""
     (S, lam, n), dt, dev, ptrs = _sample_operands(m, sigma, B, D, Z)
@@ -119,6 +165,56 @@ def gen_sample_eval(m, sigma, B, D, Z, scale, shift, fopt, mode, valid):
             "cma_gen_sample_eval", dev, *ptrs, Y.data_ptr(), F.data_ptr(),
             Fpart.data_ptr(), S, lam, n)
     return Y, F
+
+
+def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
+    """Y, X (S, λ, n) from m (S,n), sigma (S,), B (S,n,n), D (S,n) and the
+    counter stream of ``seeds`` (S, 2); Z is drawn inside the kernel."""
+    (S, lam, n), dt, dev, ptrs, words = _rng_operands(m, sigma, B, D, seeds,
+                                                      lam)
+    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
+    X = torch.empty_like(Y)
+    _launch(_fn("cma_gen_sample", "cma_gen_sample_rng", dt),
+            "cma_gen_sample_rng", dev, *ptrs, Y.data_ptr(), X.data_ptr(), S,
+            lam, n)
+    del words
+    return Y, X
+
+
+def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, scale, shift, fopt,
+                        mode, valid):
+    """Y (S, λ, n) and F (S, λ) from the counter stream of ``seeds`` (S, 2)
+    for a separable fid laid out as in ``gen_sample_eval``."""
+    (S, lam, n), dt, dev, ptrs, words = _rng_operands(m, sigma, B, D, seeds,
+                                                      lam)
+    ptrs += [_check("scale", scale, (S, n), dt, dev),
+             _check("shift", shift, (S, n), dt, dev),
+             _check("fopt", fopt, (S,), dt, dev),
+             _check("mode", mode, (S,), torch.int32, dev),
+             _check("valid", valid, (S,), torch.int32, dev)]
+    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
+    F = torch.empty((S, lam), dtype=dt, device=dev)
+    tile_cols = _fn("cma_gen_sample", "cma_gen_sample_tile_cols", dt)()
+    Fpart = torch.empty((S, -(-n // tile_cols), lam), dtype=dt, device=dev)
+    _launch(_fn("cma_gen_sample", "cma_gen_sample_rng_eval", dt),
+            "cma_gen_sample_rng_eval", dev, *ptrs, Y.data_ptr(), F.data_ptr(),
+            Fpart.data_ptr(), S, lam, n)
+    del words
+    return Y, F
+
+
+def sample_z_rng(seeds, lam: int, n: int, dtype=torch.float64):
+    """The counter stream Z (S, λ, n) of ``seeds`` (S, 2) in ``dtype``."""
+    lam, n = int(lam), int(n)
+    words = _seed_words(seeds, lam, n)
+    if dtype not in _SUFFIX:
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    S = words.shape[0]
+    Z = torch.empty((S, lam, n), dtype=dtype, device=words.device)
+    _launch(_fn("cma_gen_sample", "cma_sample_z_rng", dtype),
+            "cma_sample_z_rng", words.device, words.data_ptr(), Z.data_ptr(),
+            S, lam, n)
+    return Z
 
 
 def gen_update(C, B, D, p_sigma, p_c, Y, w, coef):

@@ -6,8 +6,20 @@ anything it does not take — there is no fallback from a CUDA tensor to the
 plain version.  The CUDA kernels tile, so no size limit routes a problem
 elsewhere (the JAX package's VMEM-fit fallback has no counterpart).
 
-``impl`` accepts only ``"auto"`` in this slice of the port; the JAX
-package's other tiers come later (ROADMAP.md, queue A item 1).
+``impl`` picks the sampling tier (the JAX package's names in brackets):
+
+* ``"auto"`` — Z is the row-keyed ``jax.random`` draw, made before the
+  sample kernel and handed to it (``gen_sample``/``gen_sample_eval``);
+* ``"kernel_rng"`` [``"pallas_rng"``] — Z is the threefry counter stream,
+  drawn inside the sample kernel from per-slot seeds
+  (``gen_sample_rng``/``gen_sample_rng_eval``).  A different stream from
+  the row-keyed one, so ``"auto"`` never resolves to it.
+
+The update is the same kernel under both.  Not ported: the JAX package's
+Mosaic probe and quiet fallback (``_rng_kernel_supported``), its
+``REPRO_KERNEL_IMPL`` override, and ``rng_bits="hw"`` (the TPU's hardware
+PRNG has no counterpart).  ``eager``, ``eager_unfused`` and ``kernel`` come
+with the slices that need them (ROADMAP.md, queue A item 1).
 """
 from __future__ import annotations
 
@@ -16,7 +28,7 @@ import torch
 from repro_torch.core.eval_dispatch import FusableEval
 from repro_torch.kernels import cma_gen, ref
 
-IMPL_CHOICES = ("auto",)
+IMPL_CHOICES = ("auto", "kernel_rng")
 
 
 def validate_impl(impl: str) -> str:
@@ -24,6 +36,13 @@ def validate_impl(impl: str) -> str:
         raise ValueError(f"unknown impl {impl!r}; this slice of the port "
                          f"offers {IMPL_CHOICES}")
     return impl
+
+
+def resolve_impl(impl: str) -> str:
+    """The sampling tier ``impl`` runs: itself, once validated.  ``"auto"``
+    stays the row-keyed tier whatever the device (the device picks kernel
+    or plain version, not the stream)."""
+    return validate_impl(impl)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -69,6 +88,21 @@ def gen_sample_eval(m, sigma, B, D, Z, sep):
     if _on_cuda(Z):
         return cma_gen.gen_sample_eval(m, sigma, B, D, Z, *sep)
     return ref.gen_sample_eval(m, sigma, B, D, Z, sep)
+
+
+def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
+    """Fused sampling (Y, X) on the counter stream of ``seeds`` (S, 2)."""
+    if _on_cuda(B):
+        return cma_gen.gen_sample_rng(m, sigma, B, D, seeds, lam)
+    return ref.gen_sample_rng(m, sigma, B, D, seeds, lam)
+
+
+def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, sep):
+    """Eval-fused sampling (Y, F) on the counter stream; ``sep`` as in
+    ``gen_sample_eval``."""
+    if _on_cuda(B):
+        return cma_gen.gen_sample_rng_eval(m, sigma, B, D, seeds, lam, *sep)
+    return ref.gen_sample_rng_eval(m, sigma, B, D, seeds, lam, sep)
 
 
 def gen_update(C, B, D, p_sigma, p_c, Y, w, coef):

@@ -9,10 +9,24 @@ scalars are (S,) tensors.
 Convention shared with the update kernel: C′ is made exactly symmetric by
 mirroring its upper triangle (i ≤ j), so no ``0.5·(C + Cᵀ)`` pass is needed
 and ``eigh`` reads the same matrix whichever triangle it uses.
+
+The ``*_rng`` functions are the counter stream of the in-kernel RNG tier
+(``impl="kernel_rng"``): Z[s, r, c] is a function of the slot's seed words
+and the counter ``(r << 16) | c`` alone (``kernels/csrc/threefry.cuh`` is
+the kernels' copy).  Words and uniforms are bit-exact on every side; the
+normal carries the few-ulp spread of ``log1p`` and ``cos`` between math
+libraries (float64 ``log1p`` here is XLA's, ``prng.log1p_xla``).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from repro_torch.core import prng
+
+#: λ and n must stay below 2¹⁶: the counter packs (row, col) into 32 bits
+RNG_MAX_DIM = 1 << 16
 
 
 def whiten_floor(dtype: torch.dtype) -> float:
@@ -36,6 +50,52 @@ def gen_sample_eval(m, sigma, B, D, Z, sep):
     from repro_torch.fitness import bbob
     Y, X = gen_sample(m, sigma, B, D, Z)
     return Y, bbob.separable_eval(X, sep)
+
+
+def bits_to_unit(bits: torch.Tensor, dtype) -> torch.Tensor:
+    """uint32 words (int64-held) → [0, 1): the top 23 bits as a float32
+    mantissa in [1, 2), minus 1, then cast to ``dtype``."""
+    one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return (one - 1.0).to(dtype)
+
+
+def threefry_normal(seed0, seed1, rows, cols, dtype) -> torch.Tensor:
+    """N(0, 1) grid keyed by (seed, row, col): threefry2x32-20 of the
+    counter ``((row << 16) | col, 0)``, then the Box–Muller cosine branch
+    ``sqrt(−2·log1p(−u1))·cos(2π·u2)`` in ``dtype``.  ``seed0``/``seed1``
+    and the int64 ``rows``/``cols`` broadcast against each other."""
+    c0 = ((rows << 16) | cols) & prng.MASK32
+    b0, b1 = prng.threefry2x32(seed0, seed1, c0, torch.zeros_like(c0))
+    u1, u2 = bits_to_unit(b0, dtype), bits_to_unit(b1, dtype)
+    log1p = prng.log1p_xla if dtype == torch.float64 else torch.log1p
+    two_pi = torch.tensor(2.0 * math.pi, dtype=dtype, device=u2.device)
+    return torch.sqrt(-2.0 * log1p(-u1)) * torch.cos(two_pi * u2)
+
+
+def sample_z_rng(seeds: torch.Tensor, lam: int, n: int,
+                 dtype=torch.float64) -> torch.Tensor:
+    """The counter stream Z (S, λ, n) from per-slot seeds (S, 2) (uint32
+    words held in int64).  Prefix-stable: rows and columns of a smaller
+    call are the leading ones of a larger call."""
+    dev = seeds.device
+    rows = torch.arange(lam, dtype=torch.int64, device=dev)[:, None]
+    cols = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    s = seeds.to(torch.int64) & prng.MASK32
+    return threefry_normal(s[:, 0, None, None], s[:, 1, None, None],
+                           rows[None], cols[None], dtype)
+
+
+def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
+    """``gen_sample`` on the counter stream drawn from ``seeds`` (S, 2):
+    (Y, X), each (S, λ, n)."""
+    Z = sample_z_rng(seeds, lam, B.shape[-1], m.dtype)
+    return gen_sample(m, sigma, B, D, Z)
+
+
+def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, sep):
+    """``gen_sample_eval`` on the counter stream: (Y, F), X never kept."""
+    Z = sample_z_rng(seeds, lam, B.shape[-1], m.dtype)
+    return gen_sample_eval(m, sigma, B, D, Z, sep)
 
 
 def mirror_upper(A: torch.Tensor) -> torch.Tensor:

@@ -200,6 +200,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_impl_vocabulary_is_auto_only():
-    assert ops.validate_impl("auto") == "auto"
-    with pytest.raises(ValueError):
-        ops.validate_impl("xla")
+    """The vocabulary of this slice: ``auto`` and ``kernel_rng``; the JAX
+    package's names are refused."""
+    assert ops.IMPL_CHOICES == ("auto", "kernel_rng")
+    for impl in ops.IMPL_CHOICES:
+        assert ops.validate_impl(impl) == impl
+    for impl in ("xla", "pallas_rng"):
+        with pytest.raises(ValueError):
+            ops.validate_impl(impl)

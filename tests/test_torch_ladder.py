@@ -94,4 +94,4 @@ def test_unported_options_raise():
         tladder.LadderEngine(n=3, impl="xla", device="cpu")
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
     with pytest.raises(NotImplementedError):
-        tipop.run_ipop(fn, 3, 0, backend="bucketed", device="cpu")
+        tipop.run_ipop(fn, 3, 0, backend="mesh", device="cpu")
