@@ -11,12 +11,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain version on the card, at the shapes of
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
-   f1 instance's coefficients) and a ragged one (S=3, λ=37, n=45, one
-   all-zero-weight slot), float64 (max relative error ≤ 1e-12) and float32
-   (≤ 1e-4); C′ must be exactly symmetric.  The in-kernel RNG kernels are
-   fed seed words at and above 2³¹, and must be prefix-stable kernel
-   against kernel, bit for bit: the first 12 rows of a λ=3072 call are a
-   λ=12 call (Z, Y, X and F);
+   f1 instance's coefficients), a ragged one (S=3, λ=37, n=45, one
+   all-zero-weight slot) and every shape a bucketed path launches (S=1,
+   λ=12, n=1000 of phase 3b; S=1, λ=12·2ᵏ, n=40 for k = 0…7 of phase 4b,
+   with the f1 coefficients), float64 (max relative error ≤ 1e-12) and
+   float32 (≤ 1e-4); C′ must be exactly symmetric.  The in-kernel RNG
+   kernels are fed seed words at and above 2³¹, and must be prefix-stable
+   kernel against kernel, bit for bit, at n=1000 and n=40: the first 12
+   and 192 rows of a λ=3072 call are a λ=12 and a λ=192 call (Z, Y, X
+   and F);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -30,13 +33,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    generation beside phase 3's;
 3c. the bucketed path at n=8, λ_start=16 on the card and on the CPU (f8,
    and f1/f2 through the eval-fused kernels; ``auto`` and ``kernel_rng``):
-   ints exact, each descent's best-so-far record to 1e-9 of its largest
-   magnitude; and on the card bucketed against ladder, ints exact;
+   every int leaf of the trace and the final carry exactly, every float
+   leaf (best values, m, σ, C, the paths) element by element to 1e-9
+   (``compare_small_runs``); and on the card bucketed against ladder, the
+   ints of every executed generation exactly;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
    eval-fused sample kernel (n=40, λ_max=3072, 100 000 evaluations);
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
    in-kernel RNG eval kernel), then again with the speculative segment
-   driver (``overlap=True``), whose trace must be bit-identical;
+   driver (``overlap=True``), whose result must be bit-identical;
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
    4 and 4b) its launches, its time, the plain version's time, one
    PyTorch call's time (none for the Z stream alone) and the least time
@@ -49,7 +54,6 @@ before printing any result.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -61,6 +65,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import bucketed, cmaes, ipop, ladder  # noqa: E402
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
@@ -77,6 +82,10 @@ BUDGET = 100_000                          # phase 4's evaluations
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
+#: the shapes the bucketed paths launch at: rung 0 of phase 3b, and every
+#: bucket 12·2ᵏ of phase 4b below λ_max (which is RESTARTS)
+BUCKETS = [(dict(MAIN, lam=LAM_START), None)] + [
+    (dict(RESTARTS, lam=LAM_START << k), 1) for k in range(KMAX)]
 #: the paths whose launches are counted: shape and the fid of the fitness.
 #: The bucketed paths' shapes are those their kernels ran at (rung 0 of
 #: phase 3b; the widest bucket phase 4b reached), filled in by main().
@@ -225,6 +234,22 @@ def same_bits(name, got, want):
             raise AssertionError(f"{name}: not bit-identical")
 
 
+def same_result(name, got, want):
+    """Two IPOPResults, bit for bit: every descent's record, the best value
+    and point, the evaluations and the driver's bucket sequence."""
+    if not (got.total_fevals == want.total_fevals
+            and got.best_f == want.best_f
+            and np.array_equal(got.best_x, want.best_x)
+            and len(got.descents) == len(want.descents)
+            and all(a.k_exp == b.k_exp and a.stop_reason == b.stop_reason
+                    and all(np.array_equal(x, y) for x, y in
+                            zip(a[2:5], b[2:5]))
+                    for a, b in zip(got.descents, want.descents))
+            and [sg["bucket"] for sg in got.driver["segments"]]
+            == [sg["bucket"] for sg in want.driver["segments"]]):
+        raise AssertionError(f"{name}: result not bit-identical")
+
+
 def time_ms(fn, reps=10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -267,7 +292,8 @@ def phase_kernels(dev):
     """Every kernel against its plain version; returns the max errors."""
     errs = {k: 0.0 for k in SOURCES}
     rows = []
-    for shape, fid in ((MAIN, None), (RESTARTS, 1), (RAGGED, None)):
+    shapes = [(MAIN, None), (RESTARTS, 1), (RAGGED, None)] + BUCKETS
+    for shape, fid in shapes:
         for dtype in (torch.float64, torch.float32):
             S, lam, n = shape["S"], shape["lam"], shape["n"]
             a, sep = sample_inputs(S, lam, n, dtype, dev, fid=fid)
@@ -314,29 +340,33 @@ def phase_kernels(dev):
 
 
 def rng_prefix_checks(dev):
-    """Kernel against kernel, bit for bit: the first rows and columns of a
-    wide call are a narrow call (the bucket property).  Seed words ≥ 2³¹
-    are read as unsigned: the kernel's stream is the plain version's, whose
-    words are uint32 by construction, and the words' int64 twins below 0
-    give the same bits."""
+    """Kernel against kernel, bit for bit, at both widths the bucketed
+    paths run (n = 1000 and 40): the first rows and columns of a λ_max call
+    are a narrow call at bucket widths 12 and 192 (the bucket property).
+    Seed words ≥ 2³¹ are read as unsigned: the kernel's stream is the plain
+    version's, whose words are uint32 by construction, and the words'
+    int64 twins below 0 give the same bits."""
     out = {}
-    for dtype in (torch.float64, torch.float32):
-        S, lam, n = MAIN["S"], MAIN["lam"], MAIN["n"]
+    for dtype, n in ((d, n) for d in (torch.float64, torch.float32)
+                     for n in (MAIN["n"], RESTARTS["n"])):
+        S, lam = MAIN["S"], MAIN["lam"]
         a, sep = sample_inputs(S, lam, n, dtype, dev, fid=1)
         r, seeds = rng_args(a), seed_words(S, dev, seed=5)
-        wide = cma_gen.sample_z_rng(seeds, lam, n, dtype)
-        same_bits("cma_sample_z_rng prefix",
-                  (cma_gen.sample_z_rng(seeds, 12, n, dtype),
-                   cma_gen.sample_z_rng(seeds, 12, 7, dtype)),
-                  (wide[:, :12], wide[:, :12, :7]))
-        wide = cma_gen.gen_sample_rng(*r.values(), seeds, lam)
-        same_bits("cma_gen_sample_rng prefix",
-                  cma_gen.gen_sample_rng(*r.values(), seeds, 12),
-                  (t[:, :12] for t in wide))
-        wide = cma_gen.gen_sample_rng_eval(*r.values(), seeds, lam, *sep)
-        same_bits("cma_gen_sample_rng_eval prefix",
-                  cma_gen.gen_sample_rng_eval(*r.values(), seeds, 12, *sep),
-                  (t[:, :12] for t in wide))
+        wide_z = cma_gen.sample_z_rng(seeds, lam, n, dtype)
+        wide_x = cma_gen.gen_sample_rng(*r.values(), seeds, lam)
+        wide_f = cma_gen.gen_sample_rng_eval(*r.values(), seeds, lam, *sep)
+        for p in (LAM_START, LAM_START << 4):
+            same_bits("cma_sample_z_rng prefix",
+                      (cma_gen.sample_z_rng(seeds, p, n, dtype),
+                       cma_gen.sample_z_rng(seeds, p, 7, dtype)),
+                      (wide_z[:, :p], wide_z[:, :p, :7]))
+            same_bits("cma_gen_sample_rng prefix",
+                      cma_gen.gen_sample_rng(*r.values(), seeds, p),
+                      (t[:, :p] for t in wide_x))
+            same_bits("cma_gen_sample_rng_eval prefix",
+                      cma_gen.gen_sample_rng_eval(*r.values(), seeds, p,
+                                                  *sep),
+                      (t[:, :p] for t in wide_f))
         high = seeds.clone()
         high[:, 1] = 2 ** 32 - 1 - high[:, 1] % 7
         got = cma_gen.sample_z_rng(high, 64, n, dtype)
@@ -345,7 +375,7 @@ def rng_prefix_checks(dev):
         same_bits("cma_sample_z_rng negative twins",
                   (cma_gen.sample_z_rng(high - 2 ** 32, 64, n, dtype),),
                   (got,))
-        out[str(dtype)] = True
+        out[f"{dtype}_n{n}"] = True
     torch.cuda.synchronize()
     return out
 
@@ -423,54 +453,30 @@ def small_ladders(dev):
     return worst
 
 
-@contextlib.contextmanager
-def bucketed_record():
-    """What the segment driver does inside the block: its segment records,
-    its traces and its schedule pulls (``pull_schedule`` calls)."""
-    rec = {"segments": [], "traces": [], "pulls": 0}
-    drive, pull = bucketed.drive_segments, bucketed.pull_schedule
-
-    def drive_rec(*args, **kw):
-        out = drive(*args, **kw)
-        rec["segments"] += out[2]
-        rec["traces"].append(out[1])
-        return out
-
-    def pull_rec(carry, **kw):
-        rec["pulls"] += 1
-        return pull(carry, **kw)
-    bucketed.drive_segments, bucketed.pull_schedule = drive_rec, pull_rec
-    try:
-        yield rec
-    finally:
-        bucketed.drive_segments, bucketed.pull_schedule = drive, pull
-
-
-def bucketed_padding(rec, lam_start, kmax_exp):
-    """Useful against padded evaluations of a recorded bucketed run: each
-    segment step pays its bucket's width, each executed generation is
+def bucketed_padding(res, lam_start):
+    """Useful against padded evaluations of a bucketed ``run_ipop`` result:
+    each segment step pays its bucket's width, each executed generation is
     worth its rung's λ."""
-    useful = sum(bucketed._useful_evals_per_rung(
-        rec["traces"][0], lam_start, kmax_exp).values())
+    useful = sum(len(d.gens) * d.lam for d in res.descents)
     padded = sum(sg["gens"] * lam_start * 2 ** sg["bucket"]
-                 for sg in rec["segments"])
+                 for sg in res.driver["segments"])
     return {"useful_evals": useful, "padded_evals": padded,
             "waste": padded / max(useful, 1)}
 
 
-def check_bucketed_run(name, rec, launches, sample_kernel):
+def check_bucketed_run(name, log, launches, sample_kernel):
     """One sample and one update launch per segment step, none of the
     Z-operand kernels, and one pull per boundary."""
-    steps = sum(sg["gens"] for sg in rec["segments"])
+    steps = sum(sg["gens"] for sg in log["segments"])
     others = {k: v for k, v in launches.items()
               if k not in (sample_kernel, "cma_gen_update")}
     if (launches[sample_kernel] != steps or launches["cma_gen_update"] != steps
             or any(others.values())):
         raise AssertionError(f"{name}: launches {launches} for {steps} "
                              "generations")
-    if rec["pulls"] != len(rec["segments"]) + 1:
-        raise AssertionError(f"{name}: {rec['pulls']} pulls for "
-                             f"{len(rec['segments'])} segments")
+    if log["pulls"] != len(log["segments"]) + 1:
+        raise AssertionError(f"{name}: {log['pulls']} pulls for "
+                             f"{len(log['segments'])} segments")
     return steps
 
 
@@ -482,14 +488,13 @@ def phase_bucketed_main(dev, ladder_ms_per_gen):
     torch.cuda.synchronize()
     cma_gen.reset_launches()
     t0 = time.perf_counter()
-    with bucketed_record() as rec:
-        res = ipop.run_ipop(fn, n, 11, lam_start=LAM_START, kmax_exp=KMAX,
-                            max_evals=LAM_START * gens, backend="bucketed",
-                            impl="kernel_rng", device=dev)
+    res = ipop.run_ipop(fn, n, 11, lam_start=LAM_START, kmax_exp=KMAX,
+                        max_evals=LAM_START * gens, backend="bucketed",
+                        impl="kernel_rng", device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cma_gen.LAUNCHES)
-    steps = check_bucketed_run("bucketed f8", rec, launches,
+    steps = check_bucketed_run("bucketed f8", res.driver, launches,
                                "cma_gen_sample_rng")
     d0 = res.descents[0]
     if (steps != gens or res.total_fevals != LAM_START * gens
@@ -498,73 +503,136 @@ def phase_bucketed_main(dev, ladder_ms_per_gen):
             or not (np.diff(d0.best_f) <= 0).all()):
         raise AssertionError(f"bucketed f8 run: {steps} steps, fevals "
                              f"{res.total_fevals}, best_f {res.best_f}")
-    padding = bucketed_padding(rec, LAM_START, KMAX)
+    padding = bucketed_padding(res, LAM_START)
     if padding["padded_evals"] != padding["useful_evals"]:
         raise AssertionError(f"bucketed f8 run: padding {padding} on rung 0")
     emit({"phase": "bucketed_rng_f8", "n": n, "lam_max": lam_max, "gens": gens,
           "ms_per_gen": wall / gens * 1e3,
           "ladder_ms_per_gen": ladder_ms_per_gen, "launches": launches,
-          "segments": rec["segments"], "pulls": rec["pulls"],
+          "segments": res.driver["segments"], "pulls": res.driver["pulls"],
           "padding": padding, "ladder_padded_evals": gens * lam_max,
           "best_f_minus_fopt": res.best_f - float(inst.f_opt)})
     return launches
 
 
-def compare_runs(name, a, b):
-    """IPOPResults: the ints (fevals, descents, generations, stop reasons)
-    exactly; returns the largest error of a descent's best-so-far record
-    relative to its largest magnitude, which the caller bounds.  (Relative
-    to each value it would be meaningless where the record crosses 0 on
-    its way to a negative f_opt.)  best_x is not bounded: near a converged
-    Rosenbrock optimum a 1e-13 change of f moves x along the valley by far
-    more."""
-    ints = lambda r: [r.total_fevals] + [  # noqa: E731
-        (d.k_exp, d.lam, d.stop_reason, d.gens.tolist(), d.fevals.tolist())
-        for d in r.descents]
-    if ints(a) != ints(b):
-        raise AssertionError(f"{name}: descents or fevals differ")
-    err = 0.0
-    for da, db in zip(a.descents, b.descents):
-        x, y = np.asarray(da.best_f), np.asarray(db.best_f)
-        err = max(err, float(np.abs(x - y).max()
-                             / max(np.abs(y).max(), 1e-300)))
-    return err
+def f_err(a, b, f_opt):
+    """Fitness values ``a`` against ``b``, element by element: ``(err,
+    drift)``.  ``err`` is the largest |a − b| relative to |b| + |b − f_opt|,
+    the value's own magnitude and never less than |f_opt| (relative to |b|
+    alone it would blow up where a record crosses 0 on its way to a
+    negative f_opt).  ``drift`` is the largest |a − b| beyond 4 ulp of
+    ``b`` relative to |b − f_opt|: how far the two runs drifted apart
+    against how far they still are from the optimum.  Non-finite values
+    must sit in the same places."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    fin = np.isfinite(b)
+    if not (np.array_equal(fin, np.isfinite(a))
+            and np.array_equal(a[~fin], b[~fin])):
+        return float("inf"), float("inf")
+    a, b = a[fin], b[fin]
+    if not b.size:
+        return 0.0, 0.0
+    diff, gap = np.abs(a - b), np.abs(b - f_opt)
+    err = diff / np.maximum(np.abs(b) + gap, 1e-300)
+    excess = np.maximum(diff - 4 * np.spacing(np.abs(b)), 0.0)
+    drift = np.divide(excess, gap, out=np.where(excess > 0, np.inf, 0.0),
+                      where=gap > 0)
+    return float(err.max()), float(drift.max())
+
+
+def rel_err(a, b, scale):
+    """max |a − b| / scale, per slot where ``scale`` is (S,), else per
+    element."""
+    if scale.shape != a.shape:
+        d = (a - b).abs().reshape(a.shape[0], -1).amax(dim=1)
+    else:
+        d = (a - b).abs()
+    return float((d / scale.clamp_min(1e-300)).max())
+
+
+def compare_small_runs(name, card, cpu, f_opt):
+    """Two ``run_bucketed_single`` results (carry, trace, log): every int
+    leaf of the trace and the carry exactly; every float leaf element by
+    element, bound by 1e-9 — the best values (trace and carry) by
+    ``f_err``, m relative to max(|m|, 1), σ relative to itself, C relative
+    to its largest entry, the paths relative to their largest entry.
+    Returns the bound errors and, unbound, the drift: the best values'
+    (``f_err``) and m against the step scale σ·max D.  best_x is not
+    compared: near a converged Rosenbrock optimum a 1e-13 change of f moves
+    x along the valley by far more."""
+    (c_a, t_a, _), (c_b, t_b, _) = card, cpu
+    c_a = convert.ladder_carry(convert.to_numpy(c_a), "cpu")
+    t_a = ladder.LadderTrace(*(v.cpu() for v in t_a))
+    ints = [(f, getattr(t_a, f), getattr(t_b, f)) for f in t_a._fields
+            if not getattr(t_a, f).dtype.is_floating_point]
+    ints += [(f, getattr(c_a, f), getattr(c_b, f))
+             for f in ("k_idx", "incarnation", "active", "total_fevals")]
+    ints += [(f"states.{f}", getattr(c_a.states, f), getattr(c_b.states, f))
+             for f in ("gen", "last_eigen_gen", "fevals", "hist_count",
+                       "stop", "stop_reason", "restarts")]
+    for f, x, y in ints:
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: {f} differs between card and CPU")
+    sa, sb = c_a.states, c_b.states
+    bests = [(t_a.best_f, t_b.best_f), (t_a.global_best, t_b.global_best),
+             (c_a.best_f, c_b.best_f), (sa.best_f, sb.best_f)]
+    f_errs = [f_err(x, y, f_opt) for x, y in bests]
+    errs = {"best_f": max(e for e, _ in f_errs),
+            "sigma": rel_err(sa.sigma, sb.sigma, sb.sigma.abs()),
+            "m": rel_err(sa.m, sb.m, sb.m.abs().clamp_min(1.0)),
+            "C": rel_err(sa.C, sb.C, sb.C.abs().amax(dim=(1, 2))),
+            "p_sigma": rel_err(sa.p_sigma, sb.p_sigma,
+                               sb.p_sigma.abs().amax(dim=1)),
+            "p_c": rel_err(sa.p_c, sb.p_c, sb.p_c.abs().amax(dim=1))}
+    drift = {"best_f_vs_gap": max(d for _, d in f_errs),
+             "m_vs_step": rel_err(sa.m, sb.m, sb.sigma * sb.D.amax(dim=1))}
+    return errs, drift
 
 
 def phase_small_bucketed(dev):
     """The bucketed path at n=8 on the card and on the CPU, f8 and f1/f2
-    through ``fusable_fitness``, under both sampling tiers: ints exact,
-    floats to 1e-9; on the card, bucketed against ladder, ints exact.
+    through ``fusable_fitness``, under both sampling tiers, compared by
+    ``compare_small_runs``; on the card, bucketed against the padded
+    ladder: the ints of every executed generation exactly.
 
     λ_start = 16 = 2n: with fewer than n weighted rows (μ < n) the first
     covariances have a repeated eigenvalue, whose eigenvectors cuSOLVER and
     LAPACK choose differently, and the two runs then sample different
     populations from the same distribution."""
-    kw = dict(lam_start=16, kmax_exp=2, max_evals=6000)
+    kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=6000)
     worst = {}
     for fid in (8, 1, 2):
         for impl in ("auto", "kernel_rng"):
-            runs = {}
-            for d, backend in ((dev, "bucketed"), ("cpu", "bucketed"),
-                               (dev, "ladder")):
+            runs, fns = {}, {}
+            for d in (dev, "cpu"):
                 fn, inst = bbob.make_fitness(fid, 8, 1, device=d)
-                fn = bbob.fusable_fitness(inst, (fid,), fn) \
+                fns[d] = bbob.fusable_fitness(inst, (fid,), fn) \
                     if fid in bbob.FUSABLE_FIDS else fn
-                runs[(d == "cpu", backend)] = ipop.run_ipop(
-                    fn, 8, 3, impl=impl, backend=backend, device=d, **kw)
+                eng = bucketed.BucketedLadderEngine(impl=impl, device=d, **kw)
+                runs[d] = bucketed.run_bucketed_single(eng, 3, fns[d])
             name = f"f{fid}_{impl}"
-            card, cpu = runs[(False, "bucketed")], runs[(True, "bucketed")]
-            err = compare_runs(f"{name} card vs CPU", card, cpu)
-            if err > 1e-9:
-                raise AssertionError(f"{name}: card vs CPU rel err {err:.3e}")
-            compare_runs(f"{name} bucketed vs ladder", card,
-                         runs[(False, "ladder")])
-            worst[name] = {"best_f_rel_err": err, "best_x_max_abs_diff":
-                           float(np.abs(card.best_x - cpu.best_x).max()),
-                           "descents": [[d.lam, len(d.gens), d.stop_reason]
-                                        for d in card.descents]}
-    emit({"phase": "small_bucketed_card_vs_cpu", "n": 8, **kw,
-          "runs": worst})
+            errs, drift = compare_small_runs(name, runs[dev], runs["cpu"],
+                                             float(inst.f_opt))
+            eng_l = ladder.LadderEngine(schedule="sequential", impl=impl,
+                                        device=dev, **kw)
+            c_l, t_l = eng_l.run(3, fns[dev])
+            c_b, t_b, log = runs[dev]
+            for f in ("k_idx", "gen", "fevals", "stop_reason", "stopped"):
+                if not torch.equal(getattr(t_b, f)[t_b.ran],
+                                   getattr(t_l, f)[t_l.ran]):
+                    raise AssertionError(f"{name}: bucketed and ladder {f} "
+                                         "differ on the card")
+            if int(c_b.total_fevals) != int(c_l.total_fevals):
+                raise AssertionError(f"{name}: bucketed and ladder fevals")
+            worst[name] = {"errs": errs, "drift": drift,
+                           "gens": int(t_b.ran.sum()),
+                           "segments": len(log["segments"]),
+                           "fevals": int(c_b.total_fevals)}
+    emit({"phase": "small_bucketed_card_vs_cpu", **kw, "runs": worst})
+    bad = {name: {k: v for k, v in w["errs"].items() if not v <= 1e-9}
+           for name, w in worst.items()}
+    if any(bad.values()):
+        raise AssertionError(f"card vs CPU errors above 1e-9: {bad}")
 
 
 def phase_ipop(dev):
@@ -611,12 +679,11 @@ def phase_bucketed_restarts(dev):
     torch.cuda.synchronize()
     cma_gen.reset_launches()
     t0 = time.perf_counter()
-    with bucketed_record() as rec:
-        res = ipop.run_ipop(fit, n, 5, backend="bucketed", device=dev, **kw)
+    res = ipop.run_ipop(fit, n, 5, backend="bucketed", device=dev, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cma_gen.LAUNCHES)
-    steps = check_bucketed_run("bucketed f1", rec, launches,
+    steps = check_bucketed_run("bucketed f1", res.driver, launches,
                                "cma_gen_sample_rng_eval")
     err = res.best_f - float(inst.f_opt)
     if not err <= 1e-8:
@@ -631,25 +698,26 @@ def phase_bucketed_restarts(dev):
     eng = bucketed.BucketedLadderEngine(n=n, overlap=True, device=dev, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with bucketed_record() as rec_o:
-        bucketed.run_bucketed_single(eng, 5, fit)
+    res_o = ipop._result_from_ladder(
+        eng.full, *bucketed.run_bucketed_single(eng, 5, fit))
     torch.cuda.synchronize()
     wall_o = time.perf_counter() - t0
-    same_bits("overlap=True trace", rec_o["traces"][0], rec["traces"][0])
-    segs_o = rec_o["segments"]
+    same_result("overlap=True", res_o, res)
+    segs_o = res_o.driver["segments"]
     emit({"phase": "bucketed_rng_f1_restarts", "n": n,
           "best_f_minus_fopt": err,
           "descents": [[d.lam, len(d.gens), d.stop_reason]
                        for d in res.descents],
           "total_fevals": res.total_fevals, "steps": steps, "wall_s": wall,
           "ms_per_step": wall / steps * 1e3, "launches": launches,
-          "segments": len(rec["segments"]), "pulls": rec["pulls"],
-          "padding": bucketed_padding(rec, LAM_START, KMAX),
+          "segments": len(res.driver["segments"]),
+          "pulls": res.driver["pulls"],
+          "padding": bucketed_padding(res, LAM_START),
           "overlap": {"wall_s": wall_o, "segments": len(segs_o),
                       "spec_hits": sum(sg["spec_hit"] for sg in segs_o),
                       "spec_s": sum(sg.get("spec_s", 0.0) for sg in segs_o),
                       "sync_s": sum(sg["sync_s"] for sg in segs_o),
-                      "pulls": rec_o["pulls"]}})
+                      "pulls": res_o.driver["pulls"]}})
     return launches, max(d.lam for d in res.descents)
 
 

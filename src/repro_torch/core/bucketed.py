@@ -36,9 +36,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import ladder
-from repro_torch.core.params import (bucket_config, default_max_iter,
-                                     ladder_params)
+from repro_torch.core.params import bucket_config, ladder_params
 from repro_torch.kernels import ops
+
+#: segment length cap in eigen blocks: the driver runs the widest live
+#: rung, so segments stay short enough to follow a climbing member
+SEG_BLOCKS = 64
+#: a guard: the driver raises after this many segments
+MAX_SEGMENTS = 10_000
 
 
 @dataclasses.dataclass
@@ -56,18 +61,10 @@ class BucketedLadderEngine:
     impl: str = "auto"                  # sampling tier, see kernels/ops.py
     dtype: str = "float64"
     eigen_interval: Optional[int] = None
-    seg_blocks: Optional[int] = None    # segment length cap in eigen blocks
-    policy: str = "cover"               # "cover" | "min" (see next_bucket)
     overlap: bool = False               # speculative next-segment dispatch
     device: Optional[str] = None        # None: CUDA, raising without it
 
     def __post_init__(self):
-        if self.policy not in ("cover", "min"):
-            raise ValueError(f"unknown policy {self.policy!r}")
-        if self.seg_blocks is None and self.policy == "cover":
-            # cover follows the widest live rung, so segments stay short
-            # enough for it to follow a climbing member between pulls
-            self.seg_blocks = 64
         # the padded engine supplies cfg, sparams, keys and the initial
         # carry; the buckets only narrow the padding
         self.full = ladder.LadderEngine(
@@ -90,41 +87,33 @@ class BucketedLadderEngine:
     def bucket_seg_gens(self, k: int, need_gens: Optional[int] = None) -> int:
         """Segment length (generations) of bucket k: whole eigen blocks,
         capped by what a rung-k descent can still run (the budget's
-        generations at λ_k, its MaxIter allowance under ``"min"``, and the
-        cohort's remaining need when known), the block count rounded up to
-        a power of two and capped at ``seg_blocks``."""
+        generations at λ_k, and the cohort's remaining need when known),
+        the block count rounded up to a power of two and capped at
+        ``SEG_BLOCKS``."""
         lam_k = (2 ** k) * self.lam_start
         most = max(1, self.max_evals // lam_k)
-        if self.policy == "min":
-            # a bucket-k cohort is all on rung k, so it cannot outlive rung
-            # k's MaxIter; under "cover" lower rungs keep climbing inside
-            most = min(most, default_max_iter(self.n, lam_k))
         if need_gens is not None:
             most = min(most, max(1, int(need_gens)))
         blocks = -(-most // self.interval)
         blocks = 1 << (blocks - 1).bit_length()          # next power of two
-        if self.seg_blocks is not None:
-            blocks = min(blocks, max(1, int(self.seg_blocks)))
-        return blocks * self.interval
+        return min(blocks, SEG_BLOCKS) * self.interval
 
     def init_carry(self, base_key: torch.Tensor) -> ladder.LadderCarry:
         return self.full.init_carry(base_key)
 
     def segment_scan(self, k: int, base_key: torch.Tensor,
                      fitness_fn: Callable, carry: ladder.LadderCarry,
-                     seg_gens: int, max_evals=None
+                     seg_gens: int
                      ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace]:
         """``seg_gens`` generations of bucket k from ``carry``; the trace
-        leaves are stacked (seg_gens, ...).  ``max_evals`` (an int or a
-        tensor) overrides the engine's budget."""
+        leaves are stacked (seg_gens, ...)."""
         cfg_k = self.bucket_cfgs[k]
         sparams_k = self.bucket_sparams[k]
-        budget = self.max_evals if max_evals is None else max_evals
 
         def step_fn(c, eigen):
             return ladder.slots_gen_step(
                 cfg_k, sparams_k, c, base_key, fitness_fn,
-                max_evals=budget, kmax_exp=self.kmax_exp,
+                max_evals=self.max_evals, kmax_exp=self.kmax_exp,
                 schedule="sequential", domain=self.domain, impl=self.impl,
                 eigen=eigen, bucket_cap=k)
 
@@ -194,61 +183,54 @@ def next_bucket(engine: BucketedLadderEngine, k_idx: np.ndarray,
                 active: np.ndarray, fevals: np.ndarray,
                 seg_len: Dict[int, int], budgets=None):
     """One re-bucketing decision: ``(live, k)``, with ``k`` None when no
-    member can pay for another generation.  ``"min"`` picks the narrowest
-    occupied rung (members only climb, so it pads least); ``"cover"`` the
-    widest live rung (every live member runs every step, fewest steps).
-    A bucket's segment length is sized when it first opens and kept in
-    ``seg_len``.  ``budgets`` (B,) replaces the engine's ``max_evals`` per
-    member; the liveness rule is the device gate of ``slots_gen_step``."""
+    member can pay for another generation.  ``k`` is the widest live rung
+    (the JAX package's ``"cover"`` policy: every live member runs every
+    step, fewest steps).  A bucket's segment length is sized when it first
+    opens and kept in ``seg_len``.  ``budgets`` (B,) replaces the engine's
+    ``max_evals`` per member; the liveness rule is the device gate of
+    ``slots_gen_step``."""
     cap = engine.max_evals if budgets is None else np.asarray(budgets)
     lam_cur = engine.lam_start * (2 ** k_idx)
     live = active & (fevals + lam_cur <= cap)
     if not live.any():
         return live, None
-    if engine.policy == "min":
-        k = int(k_idx[live].min())
-    else:
-        k = int(k_idx[live].max())
+    k = int(k_idx[live].max())
     if k not in seg_len:
-        cohort = live if engine.policy == "cover" else live & (k_idx == k)
-        need = int(np.max((cap - fevals)[cohort] // lam_cur[cohort]))
+        need = int(np.max((cap - fevals)[live] // lam_cur[live]))
         seg_len[k] = engine.bucket_seg_gens(k, need_gens=need)
     return live, k
 
 
 def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
-                   dispatch: Callable, max_segments: int = 10_000,
-                   time_axis: int = 0, pull: Optional[Callable] = None,
-                   budgets=None, overlap: Optional[bool] = None):
+                   dispatch: Callable):
     """The host re-bucketing loop.  ``dispatch(k, seg_gens, carry) ->
     (carry, trace)`` runs one segment of bucket ``k``.  Between segments
-    only ``pull`` (default ``pull_schedule``) reads the device; segment
-    traces stay on the device until they are concatenated along
-    ``time_axis`` at the end.  Returns ``(carry, trace, segments,
-    bucket_wall)``.
+    only ``pull_schedule`` reads the device; segment traces stay on the
+    device until they are concatenated at the end.  Returns ``(carry,
+    trace, log)``: ``log["segments"]`` holds one record per segment and
+    ``log["pulls"]`` counts the schedule reads (segments + 1).
 
-    ``overlap`` (default ``engine.overlap``): at each boundary after the
-    first, the schedule's copy is queued, then the next segment of the
-    previous bucket is dispatched speculatively, then the host waits for
-    the copy.  If the bucket stays, the speculative output is taken;
-    otherwise it is dropped and never touches the accepted carry, so the
-    trajectory is bit-identical to ``overlap=False``.  A segment record's
-    ``wall_s`` is the host time of dispatching the accepted segment (the
-    card may still be running it), ``sync_s`` the wait for the schedule
-    and ``spec_s`` that of the speculative dispatch.  ``pull`` must accept
-    ``wait=False`` when ``overlap`` is on."""
-    pull = pull_schedule if pull is None else pull
-    overlap = bool(engine.overlap) if overlap is None else bool(overlap)
+    With ``engine.overlap``, at each boundary after the first the
+    schedule's copy is queued, then the next segment of the previous
+    bucket is dispatched speculatively, then the host waits for the copy.
+    If the bucket stays, the speculative output is taken; otherwise it is
+    dropped and never touches the accepted carry, so the trajectory is
+    bit-identical to ``overlap=False``.  A segment record's ``wall_s`` is
+    the host time of dispatching the accepted segment (the card may still
+    be running it), ``sync_s`` the wait for the schedule and ``spec_s``
+    that of the speculative dispatch."""
+    overlap = bool(engine.overlap)
     seg_traces: List[ladder.LadderTrace] = []
     segments: List[dict] = []
-    bucket_wall: Dict[int, float] = {}
+    pulls = 0
     seg_len: Dict[int, int] = {}        # one segment length per bucket
     k_prev: Optional[int] = None
 
-    for _ in range(max_segments):
+    for _ in range(MAX_SEGMENTS):
         spec = None
+        pulls += 1
         if overlap and k_prev is not None:
-            pending = pull(carry, wait=False)
+            pending = pull_schedule(carry, wait=False)
             t0 = time.perf_counter()
             spec = dispatch(k_prev, seg_len[k_prev], carry)
             spec_s = time.perf_counter() - t0
@@ -256,14 +238,13 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             k_idx, active, fevals, best_f = pending()
         else:
             t0 = time.perf_counter()
-            k_idx, active, fevals, best_f = pull(carry)
+            k_idx, active, fevals, best_f = pull_schedule(carry)
         sync_s = time.perf_counter() - t0
         if segments:
             # the pull reflects the previous segment's result
             gb = float(best_f.min())
             segments[-1]["global_best"] = gb if np.isfinite(gb) else None
-        _live, k = next_bucket(engine, k_idx, active, fevals, seg_len,
-                               budgets=budgets)
+        _live, k = next_bucket(engine, k_idx, active, fevals, seg_len)
         if k is None:
             break
         hit = spec is not None and k == k_prev
@@ -282,27 +263,25 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             if spec is not None:
                 seg["spec_s"] = round(spec_s, 5)
         segments.append(seg)
-        bucket_wall[k] = bucket_wall.get(k, 0.0) + wall + sync_s
         k_prev = k
     else:
         raise RuntimeError("segment driver did not converge "
-                           f"within {max_segments} segments")
+                           f"within {MAX_SEGMENTS} segments")
 
+    log = {"segments": segments, "pulls": pulls}
     if not seg_traces:
         # nothing could run (a budget below one λ_start generation): the
         # padded engine's empty-progress result, with zero generations
-        return carry, _empty_trace(carry, time_axis), segments, bucket_wall
-    trace = ladder.LadderTrace(*(torch.cat(leaves, dim=time_axis)
+        return carry, _empty_trace(carry), log
+    trace = ladder.LadderTrace(*(torch.cat(leaves, dim=0)
                                  for leaves in zip(*seg_traces)))
-    return carry, trace, segments, bucket_wall
+    return carry, trace, log
 
 
-def _empty_trace(carry: ladder.LadderCarry,
-                 time_axis: int) -> ladder.LadderTrace:
+def _empty_trace(carry: ladder.LadderCarry) -> ladder.LadderTrace:
     """A zero-generation LadderTrace with the slot layout of ``carry``."""
     k = carry.k_idx
-    slot = k.shape[:time_axis] + (0,) + k.shape[time_axis:]
-    glob = k.shape[:time_axis] + (0,)
+    slot = (0,) + k.shape
     dev = k.device
 
     def z(shape, dtype):
@@ -312,17 +291,19 @@ def _empty_trace(carry: ladder.LadderCarry,
         gen=z(slot, torch.int32), fevals=z(slot, carry.states.fevals.dtype),
         best_f=z(slot, carry.best_f.dtype), stop_reason=z(slot, torch.int32),
         stopped=z(slot, torch.bool),
-        total_fevals=z(glob, carry.total_fevals.dtype),
-        global_best=z(glob, carry.best_f.dtype))
+        total_fevals=z((0,), carry.total_fevals.dtype),
+        global_best=z((0,), carry.best_f.dtype))
 
 
 def run_bucketed_single(engine: BucketedLadderEngine, key,
-                        fitness_fn: Callable, max_segments: int = 10_000
-                        ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace]:
+                        fitness_fn: Callable
+                        ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace,
+                                   dict]:
     """One problem through the segment driver, the bucketed backend behind
     ``ipop.run_ipop``.  ``key`` is an int seed or a (2,) key.  Returns
-    ``(carry, trace)`` shaped like ``LadderEngine.run``'s (trace leaves
-    (T, 1))."""
+    ``(carry, trace, log)``: carry and trace shaped like
+    ``LadderEngine.run``'s (trace leaves (T, 1)), and the driver's log
+    (``drive_segments``)."""
     base_key = engine.full.base_key(key)
     carry = engine.init_carry(base_key)
     fitness_fn = ops.slot_fitness(fitness_fn, engine.full.n_slots,
@@ -331,6 +312,4 @@ def run_bucketed_single(engine: BucketedLadderEngine, key,
     def dispatch(k, seg_gens, c):
         return engine.segment_scan(k, base_key, fitness_fn, c, seg_gens)
 
-    carry, trace, _segs, _walls = drive_segments(engine, carry, dispatch,
-                                                 max_segments, time_axis=0)
-    return carry, trace
+    return drive_segments(engine, carry, dispatch)

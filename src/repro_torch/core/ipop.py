@@ -9,7 +9,7 @@ once, at the end, and sliced into per-descent ``DescentTrace`` records.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -32,6 +32,9 @@ class IPOPResult:
     best_x: np.ndarray
     total_fevals: int
     descents: List[DescentTrace]
+    #: ``backend="bucketed"`` only: the segment driver's log, its segment
+    #: records and its schedule pulls (``bucketed.drive_segments``)
+    driver: Optional[dict] = None
 
     def hit_evals(self, targets: np.ndarray, f_opt: float) -> np.ndarray:
         """First cumulative evaluation count at which best-f − f_opt ≤ target
@@ -52,7 +55,8 @@ class IPOPResult:
 
 def _result_from_ladder(engine: ladder_mod.LadderEngine,
                         carry: ladder_mod.LadderCarry,
-                        trace: ladder_mod.LadderTrace) -> IPOPResult:
+                        trace: ladder_mod.LadderTrace,
+                        driver: Optional[dict] = None) -> IPOPResult:
     """Slice a sequential-ladder trace (leaves (T, 1)) into DescentTraces."""
     tr = ladder_mod.LadderTrace(*(leaf.cpu().numpy() for leaf in trace))
     ran, k = tr.ran[:, 0], tr.k_idx[:, 0]
@@ -70,7 +74,7 @@ def _result_from_ladder(engine: ladder_mod.LadderEngine,
     return IPOPResult(best_f=float(carry.best_f),
                       best_x=carry.best_x.cpu().numpy(),
                       total_fevals=int(carry.total_fevals),
-                      descents=descents)
+                      descents=descents, driver=driver)
 
 
 def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
@@ -97,9 +101,9 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
             domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
             device=device)
-        carry, trace = bucketed_mod.run_bucketed_single(engine_b, key,
-                                                        fitness_fn)
-        return _result_from_ladder(engine_b.full, carry, trace)
+        carry, trace, log = bucketed_mod.run_bucketed_single(
+            engine_b, key, fitness_fn)
+        return _result_from_ladder(engine_b.full, carry, trace, log)
     if backend in ("hostloop", "mesh", "service"):
         raise NotImplementedError(
             f"backend={backend!r} is not ported; 'ladder' and 'bucketed' "

@@ -77,7 +77,7 @@ def _slots_fused_update(cfg: CMAConfig, params_k, states: cmaes.CMAState,
     (S, 2).  Under ``"kernel_rng"`` the keys are the counter stream's seeds
     and the sample kernel draws Z itself; otherwise the row-keyed draw is
     made first and handed to ``fused_generation``."""
-    if ops.resolve_impl(impl) != "kernel_rng":
+    if ops.validate_impl(impl) != "kernel_rng":
         Z = cmaes.sample_z(kgs, cfg.lam_max, cfg.n, cfg.tdtype)
         return fused_generation(cfg, params_k, states, Z, fitness_fn, eigen)
     args = (states.m, states.sigma, states.B, states.D, kgs, cfg.lam_max)

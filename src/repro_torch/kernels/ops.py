@@ -32,17 +32,13 @@ IMPL_CHOICES = ("auto", "kernel_rng")
 
 
 def validate_impl(impl: str) -> str:
+    """The sampling tier ``impl`` runs: itself, once validated.  ``"auto"``
+    stays the row-keyed tier whatever the device (the device picks kernel
+    or plain version, not the stream)."""
     if impl not in IMPL_CHOICES:
         raise ValueError(f"unknown impl {impl!r}; this slice of the port "
                          f"offers {IMPL_CHOICES}")
     return impl
-
-
-def resolve_impl(impl: str) -> str:
-    """The sampling tier ``impl`` runs: itself, once validated.  ``"auto"``
-    stays the row-keyed tier whatever the device (the device picks kernel
-    or plain version, not the stream)."""
-    return validate_impl(impl)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

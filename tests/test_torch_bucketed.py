@@ -93,30 +93,26 @@ def _engines(**kw):
             tbucketed.BucketedLadderEngine(**kw, device="cpu"))
 
 
-@pytest.mark.parametrize("policy,seg_blocks,interval", [
-    ("cover", None, None), ("min", None, None), ("cover", 3, 2),
-    ("min", 5, 3)])
-def test_bucket_seg_gens_matches_jax(policy, seg_blocks, interval):
+@pytest.mark.parametrize("interval", [None, 2, 3, 7])
+def test_bucket_seg_gens_matches_jax(interval):
     for n, lam_start, kmax, budget in itertools.product(
             (4, 40), (8, 12), (2, 4), (100, 5000, 200_000)):
         je, te = _engines(n=n, lam_start=lam_start, kmax_exp=kmax,
-                          max_evals=budget, policy=policy,
-                          seg_blocks=seg_blocks, eigen_interval=interval)
+                          max_evals=budget, eigen_interval=interval)
         for k in range(kmax + 1):
             for need in (None, 1, 7, 64, 10_000):
                 assert te.bucket_seg_gens(k, need) == \
                     je.bucket_seg_gens(k, need), (n, lam_start, kmax, k, need)
 
 
-@pytest.mark.parametrize("policy", ["cover", "min"])
+@pytest.mark.parametrize("kmax", [1, 3])
 @pytest.mark.parametrize("with_budgets", [False, True])
-def test_next_bucket_matches_jax(policy, with_budgets):
+def test_next_bucket_matches_jax(kmax, with_budgets):
     rng = np.random.default_rng(4)
-    je, te = _engines(n=4, lam_start=8, kmax_exp=3, max_evals=4000,
-                      policy=policy)
+    je, te = _engines(n=4, lam_start=8, kmax_exp=kmax, max_evals=4000)
     for _ in range(40):
         B = int(rng.integers(1, 7))
-        k_idx = rng.integers(0, 4, B).astype(np.int32)
+        k_idx = rng.integers(0, kmax + 1, B).astype(np.int32)
         active = rng.random(B) < 0.8
         fevals = rng.integers(0, 4200, B)
         budgets = rng.integers(100, 5000, B) if with_budgets else None
@@ -188,30 +184,15 @@ def test_run_ipop_matches_jax(fid, backend, impl, jax_like_port):
                                   rj.hit_evals(targets, float(ji.f_opt)))
 
 
-def _run_single(engine, fit, key=7):
-    """run_bucketed_single, also returning the segment records."""
-    seen = {}
-    drive = tbucketed.drive_segments
-
-    def recording(*a, **k):
-        out = drive(*a, **k)
-        seen["segments"] = out[2]
-        return out
-    tbucketed.drive_segments = recording
-    try:
-        carry, trace = tbucketed.run_bucketed_single(engine, key, fit)
-    finally:
-        tbucketed.drive_segments = drive
-    return carry, trace, seen["segments"]
-
-
 @pytest.mark.parametrize("impl", ["auto", "kernel_rng"])
 def test_overlap_is_bit_identical(impl):
     _, tf, _ = _fitness(8, 4)
-    kw = dict(n=4, **KW, seg_blocks=16, impl=impl, device="cpu")
-    c0, t0, s0 = _run_single(tbucketed.BucketedLadderEngine(**kw), tf)
-    c1, t1, s1 = _run_single(
-        tbucketed.BucketedLadderEngine(**kw, overlap=True), tf)
+    kw = dict(n=4, **KW, impl=impl, device="cpu")
+    c0, t0, log0 = tbucketed.run_bucketed_single(
+        tbucketed.BucketedLadderEngine(**kw), 7, tf)
+    c1, t1, log1 = tbucketed.run_bucketed_single(
+        tbucketed.BucketedLadderEngine(**kw, overlap=True), 7, tf)
+    s0, s1 = log0["segments"], log1["segments"]
     for a, b in zip(t0, t1):
         assert torch.equal(a, b)
     for a, b in zip(convert.to_numpy(c0), convert.to_numpy(c1)):
@@ -235,8 +216,9 @@ def test_budget_below_one_generation_returns_empty_progress():
     assert r_l.descents == r_b.descents == []
     eng = tbucketed.BucketedLadderEngine(n=3, lam_start=8, kmax_exp=1,
                                          max_evals=4, device="cpu")
-    _, trace, segments = _run_single(eng, fn, 0)
-    assert segments == [] and trace.ran.shape == (0, 1)
+    _, trace, log = tbucketed.run_bucketed_single(eng, 0, fn)
+    assert log == {"segments": [], "pulls": 1}
+    assert trace.ran.shape == (0, 1)
     with pytest.raises(ValueError):
         tipop.run_ipop(fn, 3, 0, backend="bucketed", total_gens=5, **kw)
 
@@ -251,11 +233,12 @@ def test_pull_schedule_once_per_boundary(overlap, monkeypatch):
         return pull(carry, **kw)
     monkeypatch.setattr(tbucketed, "pull_schedule", counting)
     _, tf, _ = _fitness(1, 4)
-    eng = tbucketed.BucketedLadderEngine(n=4, **KW, seg_blocks=32,
-                                         overlap=overlap, device="cpu")
-    _, trace, segments = _run_single(eng, tf)
+    eng = tbucketed.BucketedLadderEngine(n=4, **KW, overlap=overlap,
+                                         device="cpu")
+    _, trace, log = tbucketed.run_bucketed_single(eng, 7, tf)
+    segments = log["segments"]
     assert len(segments) >= 3
-    assert len(calls) == len(segments) + 1
+    assert len(calls) == log["pulls"] == len(segments) + 1
     assert sum(s["gens"] for s in segments) == trace.ran.shape[0]
 
 

@@ -131,10 +131,10 @@ def test_z_is_prefix_stable(tdt):
 
 
 def test_auto_never_resolves_to_kernel_rng_and_cpu_takes_plain():
-    assert ops.resolve_impl("auto") != "kernel_rng"
-    assert ops.resolve_impl("kernel_rng") == "kernel_rng"
+    assert ops.validate_impl("auto") != "kernel_rng"
+    assert ops.validate_impl("kernel_rng") == "kernel_rng"
     with pytest.raises(ValueError):
-        ops.resolve_impl("pallas_rng")
+        ops.validate_impl("pallas_rng")
     a = {k: _t(v) for k, v in _gen_inputs(2, 6).items()}
     seeds = _t(_seeds(2, seed=5), torch.int64)
     before = dict(cma_gen.LAUNCHES)
