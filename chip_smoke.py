@@ -19,7 +19,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    kernels are fed seed words at and above 2³¹, and must be prefix-stable
    kernel against kernel, bit for bit, at n=1000 and n=40: the first 12
    and 192 rows of a λ=3072 call are a λ=12 and a λ=192 call (Z, Y, X
-   and F);
+   and F).  The grouped sample kernel (row 7, ``cma_sample``) at every
+   row layout a strategies path gives it — the K-Distributed heap of
+   phase 6 (512 devices × 12 rows, n=1000, nine descents), one descent of
+   λ = 12·2ᵏ rows (k = 0…8, n=1000), the K-Replicated groups of phase 6c
+   (8 devices × 12 rows, n=1000) and of the small runs of phase 6b (n=8)
+   — in both forms (Y, and X = m + σ·Y); the rank-μ update kernel (row 8,
+   ``cma_rank_mu_update``) at (λ, n) = (12, 1000), (3072, 1000) and
+   (192, 40), directly and through ``rank_mu_gram``'s zero-C form, C′
+   exactly symmetric; float64 (≤ 1e-12) and float32 (≤ 1e-4);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -42,11 +50,29 @@ Phases, one JSON line each with its seconds; any failed check raises
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
    in-kernel RNG eval kernel), then again with the speculative segment
    driver (``overlap=True``), whose result must be bit-identical;
+6. the strategies path at full width: ``ladder.run_concurrent`` (the
+   K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
+   rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
+   16 generations: ms per generation, the grouped sample kernel's launches
+   (one per generation), evaluations (exactly 6132 per generation), best −
+   f_opt, peak allocated memory (under 4 GB) and the time of one batched
+   ``eigh`` of the nine covariances;
+6b. K-Distributed (7 devices, three descents, both ``comm`` schedules, 48
+   generations) and K-Replicated (8 devices, 24 generations a phase) at
+   n=8, λ_start=16, f1 and f2, on the card and on the CPU: every int leaf
+   of trace and carry equal, every float leaf within 1e-9 (best values
+   relative to |f| + |f − f_opt|, the others per descent relative to
+   their largest entry);
+6c. ``KReplicated.run_sim`` at n=1000, 8 devices, 8 generations of each
+   phase, on the card: ms per generation per phase and the grouped sample
+   kernel's launches;
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4 and 4b) its launches, its time, the plain version's time, one
-   PyTorch call's time (none for the Z stream alone) and the least time
-   the card could take (bound) at that path's shape; the top-level numbers
-   are the phase-3 shape's, so rows 1 and 3 are timed on the same GEMM.
+   4, 4b, 6, 6b and 6c) its launches, its time, the plain version's time,
+   one PyTorch call's time (none for the Z stream alone) and the least
+   time the card could take (bound) at that path's shape (row 7: at every
+   row layout of its paths; row 8, which no path launches: at phase 2's
+   shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
+   phase 6's layout for row 7 and (3072, 1000) for row 8.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -66,10 +92,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import bucketed, cmaes, ipop, ladder  # noqa: E402
+from repro_torch.core import (bucketed, cmaes, ipop, ladder,  # noqa: E402
+                              strategies)
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
-from repro_torch.kernels import _build, cma_gen, ops, ref  # noqa: E402
+from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
+                                 cma_update, ops, ref)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FP64 on the tensor cores and
 # FP32 outside them; HBM3 bandwidth.
@@ -102,7 +130,18 @@ SOURCES = {
     "cma_gen_sample_rng_eval": (_SAMPLE_CU,
                                 "src/repro/kernels/cma_gen.py:337"),
     "cma_sample_z_rng": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:362"),
+    "cma_sample": ("src/repro_torch/kernels/csrc/cma_sample.cu",
+                   "src/repro/kernels/cma_sample.py:46"),
+    "cma_rank_mu_update": ("src/repro_torch/kernels/csrc/cma_update.cu",
+                           "src/repro/kernels/cma_update.py:53"),
 }
+#: the strategies paths: phase 6 (K-Distributed at full width), phase 6c
+#: (K-Replicated at n=1000) and the small runs of phase 6b
+STRAT = dict(n=1000, P=512, gens=16)
+KREP = dict(n=1000, P=8, gens=8)
+SMALL = dict(n=8, lam_start=16, lam_slots=16)
+#: the (λ, n) at which phase 2 checks the rank-μ update kernel
+RANK_MU_SHAPES = [(12, 1000), (3072, 1000), (192, 40)]
 #: operations per Z element of the counter stream, for the bound: about 100
 #: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
 #: multiplies, each counted as one
@@ -204,6 +243,56 @@ def ref_update(a):
     return ref.fused_gen_update(a["C"], a["B"], a["D"], a["p_sigma"],
                                 a["p_c"], a["Y"], a["w"],
                                 *a["coef"].unbind(1))
+
+
+def strategy_layouts(dev):
+    """(label, row starts, n) of every row layout a strategies path gives
+    the grouped sample kernel: phase 6's heap, one descent of each λ,
+    phase 6c's K-Replicated groups, phase 6b's small runs."""
+    def rows(starts, lam):
+        return tuple(s * lam for s in starts)
+    kd = strategies.KDistributed(n=STRAT["n"], n_devices=STRAT["P"],
+                                 lam_start=LAM_START, lam_slots=LAM_START,
+                                 device=dev)
+    small = strategies.KDistributed(n=SMALL["n"], n_devices=7, device=dev,
+                                    **{k: SMALL[k] for k in ("lam_start",
+                                                             "lam_slots")})
+    out = [("kdist_f8", rows(kd.groups.starts, LAM_START), STRAT["n"])]
+    out += [(f"descent_lam{LAM_START << k}", (0, LAM_START << k), STRAT["n"])
+            for k in range(KMAX + 1)]
+    def krep(label, P, lam, n):
+        """Phase k's groups of 2ᵏ devices, k = 0…log2 P."""
+        return [(f"{label}_G{P >> k}",
+                 tuple(range(0, P * lam + 1, lam << k)), n)
+                for k in range(P.bit_length())]
+    out += krep("krep_n1000", KREP["P"], LAM_START, KREP["n"])
+    out += [("kdist_small", rows(small.groups.starts, SMALL["lam_start"]),
+             SMALL["n"])]
+    out += krep("krep_small", 8, SMALL["lam_start"], SMALL["n"])
+    return out
+
+
+def grouped_inputs(starts, n, dtype, dev, seed=0):
+    """The grouped sample kernel's operands: one state per group (B from a
+    QR, D, m, σ) and a Z row for every row of ``starts``."""
+    G, R = len(starts) - 1, starts[-1]
+    rng = np.random.default_rng(seed)
+    B = torch.linalg.qr(torch.tensor(rng.normal(size=(G, n, n)),
+                                     device=dev))[0]
+
+    def t(a):
+        return torch.as_tensor(a, device=dev).to(dtype).contiguous()
+    return dict(B=t(B), D=t(rng.uniform(0.5, 2.0, size=(G, n))),
+                Z=t(rng.normal(size=(R, n))), m=t(rng.normal(size=(G, n))),
+                sigma=t(rng.uniform(0.1, 0.5, size=G)))
+
+
+def rank_mu_inputs(lam, n, dtype, dev, seed=2):
+    """The rank-μ update kernel's operands at (λ, n), one slot: C, Y, w
+    (half the rows weighted, in permuted order), p_c and (decay, c_μ, c₁)."""
+    u = update_inputs(1, lam, n, dtype, dev, seed, zero_slot=False)
+    coef = torch.tensor([[0.7, 0.2, 0.05]], device=dev).to(dtype)
+    return dict(C=u["C"], Y=u["Y"], w=u["w"], p_c=u["p_c"], coef=coef)
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +423,58 @@ def phase_kernels(dev):
                 rows.append({"kernel": k, "shape": [S, lam, n],
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1]})
+    rows += strategy_kernel_checks(dev, errs)
     emit({"phase": "kernels_vs_plain", "checks": rows,
           "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
+
+
+def strategy_kernel_checks(dev, errs):
+    """Rows 7 and 8 against their plain versions (module docstring, phase
+    2); records the float64 max abs errors in ``errs``."""
+    rows = []
+
+    def record(name, label, e, dtype, shape):
+        if dtype == torch.float64:
+            errs[name] = max(errs[name], e[0])
+        rows.append({"kernel": name, "layout": label, "shape": shape,
+                     "dtype": str(dtype), "max_abs_err": e[0],
+                     "max_rel_err": e[1]})
+
+    for label, starts, n in strategy_layouts(dev):
+        for dtype in (torch.float64, torch.float32):
+            a = grouped_inputs(starts, n, dtype, dev, seed=len(starts))
+            bdz = (a["B"], a["D"], a["Z"], starts)
+            e_y = compare("cma_sample", (cma_sample.sample_groups(*bdz),),
+                          (ref.sample_groups(*bdz),), dtype)
+            e_x = compare("cma_sample affine",
+                          (cma_sample.sample_groups(*bdz, a["m"],
+                                                    a["sigma"]),),
+                          (ref.sample_groups(*bdz, a["m"], a["sigma"]),),
+                          dtype)
+            record("cma_sample", label,
+                   (max(e_y[0], e_x[0]), max(e_y[1], e_x[1])), dtype,
+                   [len(starts) - 1, starts[-1], n])
+    for lam, n in RANK_MU_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            u = rank_mu_inputs(lam, n, dtype, dev)
+            args = (u["C"], u["Y"], u["w"], u["p_c"])
+            got = cma_update.rank_mu_update(*args, u["coef"])
+            e = compare("cma_rank_mu_update", (got,),
+                        (ref.rank_mu_update(*args, *u["coef"].unbind(1)),),
+                        dtype)
+            gram = ops.rank_mu_gram(u["Y"][0], u["w"][0])
+            e_g = compare("cma_rank_mu_update (rank_mu_gram)", (gram,),
+                          (ref.rank_mu_gram(u["Y"][0], u["w"][0]),), dtype)
+            for c in (got, gram):
+                if not torch.equal(c, c.transpose(-1, -2)):
+                    raise AssertionError("cma_rank_mu_update: C' is not "
+                                         "symmetric")
+            record("cma_rank_mu_update", "C", e, dtype, [1, lam, n])
+            record("cma_rank_mu_update", "rank_mu_gram", e_g, dtype,
+                   [1, lam, n])
+    torch.cuda.synchronize()
+    return rows
 
 
 def rng_prefix_checks(dev):
@@ -721,6 +859,242 @@ def phase_bucketed_restarts(dev):
     return launches, max(d.lam for d in res.descents)
 
 
+def phase_strategies(dev):
+    """``run_concurrent`` at full width on f8 (module docstring, phase 6)."""
+    n, P, gens = STRAT["n"], STRAT["P"], STRAT["gens"]
+    fn, inst = bbob.make_fitness(8, n, 1, device=dev)
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    kd, carry, tr = ladder.run_concurrent(n, P, 13, fn, gens,
+                                          lam_start=LAM_START, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = dict(cma_gen.LAUNCHES)
+    per_gen = kd.n_active * LAM_START                         # 6132
+    others = {k: v for k, v in launches.items() if k != "cma_sample"}
+    if launches["cma_sample"] != gens or any(others.values()):
+        raise AssertionError(f"strategies launches {launches}, expected "
+                             f"{gens} of cma_sample and no other kernel")
+    if not (np.array_equal(tr["fevals"], per_gen * np.arange(1, gens + 1))
+            and int(carry.fevals.sum()) == per_gen * gens):
+        raise AssertionError(f"strategies fevals {tr['fevals']}, expected "
+                             f"{per_gen} a generation")
+    best = tr["best_f"]
+    if not (np.isfinite(best).all() and (np.diff(best) <= 0).all()
+            and np.isfinite(tr["gen_best"]).all()):
+        raise AssertionError("strategies f8: best values not a finite "
+                             "best-so-far record")
+    if peak >= 4e9:
+        raise AssertionError(f"strategies peak memory {peak} B >= 4 GB")
+    # one batched eigh of the nine covariances: the lazy mode decomposes
+    # every descent each generation (eigen_interval is 1 at λ_max = 3072)
+    eigh_ms = time_ms(lambda: cmaes.eigen_decompose(carry.states.C), reps=3)
+    ms_per_gen = wall / gens * 1e3
+    emit({"phase": "strategies_kdist_f8", "n": n, "n_devices": P,
+          "descents": kd.n_descents, "lam_max": kd.lam_max,
+          "eigen_interval": kd.cfg.eigen_interval, "gens": gens,
+          "ms_per_gen": ms_per_gen, "launches": launches,
+          "cma_sample_per_gen": launches["cma_sample"] / gens,
+          "fevals": int(tr["fevals"][-1]), "fevals_per_gen": per_gen,
+          "best_f_minus_fopt": float(best[-1]) - float(inst.f_opt),
+          "peak_allocated_bytes": peak, "eigh_ms": eigh_ms,
+          "eigh_share": eigh_ms / ms_per_gen,
+          "restarts": carry.restarts.tolist()})
+    return launches
+
+
+def leaf_err(a, b):
+    """max |a − b| relative to the largest |b| of each slot (the leading
+    axis of a leaf with two or more axes; of the whole leaf otherwise);
+    non-finite values must sit in the same places."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+        return float("inf")
+    rows = b.shape[0] if b.ndim >= 2 else 1
+    a2 = np.where(np.isfinite(b), a, 0.0).reshape(rows, -1)
+    b2 = np.where(np.isfinite(b), b, 0.0).reshape(rows, -1)
+    scale = np.maximum(np.abs(b2).max(axis=1), 1e-300)
+    return float((np.abs(a2 - b2).max(axis=1) / scale).max())
+
+
+def compare_tree(name, card, cpu, f_opt, best_fields):
+    """Two dicts of numpy leaves: ints exactly; best values by ``f_err``
+    (|f| + |f − f_opt|), every other float leaf by ``leaf_err``.  Returns
+    the worst error of each float leaf."""
+    errs = {}
+    for k, b in cpu.items():
+        a, b = np.asarray(card[k]), np.asarray(b)
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: {k} shapes {a.shape} {b.shape}")
+        if b.dtype.kind != "f":
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: {k} differs between card "
+                                     "and CPU")
+        elif k in best_fields:
+            errs[k] = f_err(a, b, f_opt)[0]
+        else:
+            errs[k] = leaf_err(a, b)
+    return errs
+
+
+def _kdist_leaves(carry, trace):
+    out = {f"trace.{k}": v for k, v in trace.items()}
+    out.update({f"carry.{f}": getattr(carry, f).cpu().numpy()
+                for f in carry._fields if f != "states"})
+    out.update({f"states.{f}": getattr(carry.states, f).cpu().numpy()
+                for f in carry.states._fields})
+    return out
+
+
+def _krep_leaves(res):
+    out = {"fevals": np.asarray(res["fevals"]), "best_f": res["best_f"],
+           "best_x": res["best_x"], "phases": np.asarray(len(res["phases"]))}
+    for i, ph in enumerate(res["phases"]):
+        out.update({f"phase{i}.{k}": np.asarray(v) for k, v in ph.items()})
+    return out
+
+
+def phase_small_strategies(dev):
+    """K-Distributed and K-Replicated at n=8 on the card and on the CPU
+    (module docstring, phase 6b); λ_start = 16 = 2n, so μ ≥ n and no
+    covariance has a repeated eigenvalue (phase 3c)."""
+    best = {"trace.best_f", "trace.gen_best", "trace.descent_best",
+            "carry.best_f", "states.best_f", "states.f_hist", "best_f"}
+    best |= {f"phase{i}.{k}" for i in range(4)
+             for k in ("best_f", "group_best")}
+    runs = {}
+    cma_gen.reset_launches()
+    for fid in (1, 2):
+        for what in ("kdist_stacked", "kdist_central", "krep"):
+            leaves = {}
+            for d in (dev, "cpu"):
+                fn, inst = bbob.make_fitness(fid, SMALL["n"], 1, device=d)
+                if what == "krep":
+                    kr = strategies.KReplicated(n_devices=8, impl="auto",
+                                                device=d, **SMALL)
+                    leaves[d] = _krep_leaves(kr.run_sim(3, fn, 24))
+                else:
+                    kd = strategies.KDistributed(
+                        n_devices=7, comm=what.split("_")[1], impl="auto",
+                        device=d, **SMALL)
+                    leaves[d] = _kdist_leaves(*kd.run_sim(3, fn, 48))
+            name = f"f{fid}_{what}"
+            runs[name] = compare_tree(name, leaves[dev], leaves["cpu"],
+                                      float(inst.f_opt), best)
+    torch.cuda.synchronize()
+    launches = dict(cma_gen.LAUNCHES)
+    worst = {name: max(e.values()) for name, e in runs.items()}
+    emit({"phase": "small_strategies_card_vs_cpu", **SMALL,
+          "launches": launches, "worst_err": worst, "errs": runs})
+    bad = {name: {k: v for k, v in e.items() if not v <= 1e-9}
+           for name, e in runs.items()}
+    if any(bad.values()):
+        raise AssertionError(f"card vs CPU errors above 1e-9: {bad}")
+    if launches["cma_sample"] == 0:
+        raise AssertionError("the small card runs launched no cma_sample")
+    return launches
+
+
+def phase_krep_n1000(dev):
+    """``KReplicated.run_sim`` at n=1000 on the card, one phase at a time
+    (module docstring, phase 6c)."""
+    fn, inst = bbob.make_fitness(8, KREP["n"], 1, device=dev)
+    kr = strategies.KReplicated(n=KREP["n"], n_devices=KREP["P"],
+                                impl="auto", device=dev)
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    phases = []
+    for k in range(kr.kmax_exp + 1):
+        t0 = time.perf_counter()
+        out = kr.run_sim(17, fn, KREP["gens"], phases=[k])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ph = out["phases"][0]
+        gens = len(ph["fevals"])
+        if (gens != KREP["gens"] or out["fevals"]
+                != gens * KREP["P"] * LAM_START
+                or not np.isfinite(out["best_f"])):
+            raise AssertionError(f"krep phase {k}: {gens} generations, "
+                                 f"fevals {out['fevals']}")
+        phases.append({"k_exp": k, "lam": ph["lam"], "groups": ph["n_groups"],
+                       "gens": gens, "ms_per_gen": wall / gens * 1e3,
+                       "best_f_minus_fopt": out["best_f"]
+                       - float(inst.f_opt)})
+    launches = dict(cma_gen.LAUNCHES)
+    steps = sum(p["gens"] for p in phases)
+    if launches["cma_sample"] != steps:
+        raise AssertionError(f"krep launches {launches} for {steps} "
+                             "generations")
+    emit({"phase": "strategies_krep_n1000", "n": KREP["n"],
+          "n_devices": KREP["P"], "phases": phases, "launches": launches})
+    return launches
+
+
+def strategy_kernel_rows(dev, errs, launches):
+    """Rows 7 and 8 of the ``kernels`` line (module docstring, phase 5)."""
+    layouts = {label: (starts, n)
+               for label, starts, n in strategy_layouts(dev)}
+    paths7 = {"strategies_kdist_f8": ["kdist_f8"],
+              "strategies_krep_n1000": [lb for lb in layouts
+                                        if lb.startswith("krep_n1000")],
+              "strategies_small_card_vs_cpu": [
+                  lb for lb in layouts if lb.endswith("small")
+                  or lb.startswith("krep_small")]}
+
+    def timed(kern, plain, lib, flops, nbytes):
+        b_ms, b_by = bound(flops, nbytes, torch.float64)
+        return {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(lib)}
+
+    def work7(label):
+        starts, n = layouts[label]
+        a = grouped_inputs(starts, n, torch.float64, dev)
+        bdz = (a["B"], a["D"], a["Z"], starts)
+        G, R = len(starts) - 1, starts[-1]
+        zd = (a["Z"] * a["D"][0]).contiguous()
+        bt = a["B"][0].transpose(0, 1)
+        return {"layout": label, "groups": G, "rows": R, "n": n, **timed(
+            lambda: cma_sample.sample_groups(*bdz),
+            lambda: ref.sample_groups(*bdz), lambda: torch.matmul(zd, bt),
+            2.0 * R * n * n, 8 * (2 * R * n + G * n * n + G * n))}
+
+    def work8(lam, n):
+        u = rank_mu_inputs(lam, n, torch.float64, dev)
+        args = (u["C"], u["Y"], u["w"], u["p_c"])
+        lam_nz = int((u["w"] != 0).sum())
+        yt = u["Y"][0].transpose(0, 1)
+        wy = (u["w"][0, :, None] * u["Y"][0]).contiguous()
+        return {"shape": [1, lam, n], **timed(
+            lambda: cma_update.rank_mu_update(*args, u["coef"]),
+            lambda: ref.rank_mu_update(*args, *u["coef"].unbind(1)),
+            lambda: torch.matmul(yt, wy),
+            n * (n + 1) * lam_nz + 2.5 * n * (n + 1),
+            8 * (2 * n * n + lam_nz * n + lam + n + 3))}
+
+    paths = {"cma_sample": {
+        p: {"launches": launches[p]["cma_sample"],
+            "layouts": [work7(lb) for lb in lbs]}
+        for p, lbs in paths7.items()},
+        "cma_rank_mu_update": {
+            p: {"launches": launches[p]["cma_rank_mu_update"]}
+            for p in launches}}
+    shapes8 = [work8(*shape) for shape in RANK_MU_SHAPES]
+    paths["cma_rank_mu_update"]["phase_2_shapes"] = shapes8
+    tops = {"cma_sample": paths["cma_sample"]["strategies_kdist_f8"]
+            ["layouts"][0],
+            "cma_rank_mu_update": shapes8[1]}          # (3072, 1000)
+    return [{"name": name, "route": "cuda", "source": SOURCES[name][0],
+             "replaces": SOURCES[name][1],
+             "launches": sum(launches[p][name] for p in launches),
+             "max_abs_err": errs[name],
+             **{k: tops[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+             "paths": paths[name]} for name in tops]
+
+
 def kernel_work(shape, fid, dev):
     """Per kernel, float64 at ``shape``: (kernel call, plain call, one
     PyTorch call of the same product, operations, bytes)."""
@@ -774,11 +1148,12 @@ def phase_table(dev, errs, launches):
     """Per kernel: its launches on each path (``launches`` maps a path to
     its counts), and its time, bound, plain and library time at each path's
     shape; the top-level numbers are those at the phase-3 shape, the
-    launches those of both paths together."""
+    launches those of every path together.  Rows 7 and 8 come from
+    ``strategy_kernel_rows``."""
     work = {p: kernel_work(shape, fid, dev)
             for p, (shape, fid) in PATHS.items()}
     rows = []
-    for name in SOURCES:
+    for name in list(SOURCES)[:6]:
         paths = {}
         for p, w in work.items():
             kern, plain, lib, flops, nbytes = w[name]
@@ -793,11 +1168,12 @@ def phase_table(dev, errs, launches):
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            "launches": sum(launches[p][name] for p in PATHS),
+            "launches": sum(launches[p][name] for p in launches),
             "max_abs_err": errs[name],
             **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
             "paths": paths})
+    rows += strategy_kernel_rows(dev, errs, launches)
     emit({"kernels": rows})
 
 
@@ -825,6 +1201,12 @@ def main() -> int:
     launches["bucketed_rng_f1_restarts"], widest = timed(
         "4b_bucketed_restarts", phase_bucketed_restarts, dev)
     PATHS["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
+    launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
+                                            dev)
+    launches["strategies_small_card_vs_cpu"] = timed(
+        "6b_small_strategies", phase_small_strategies, dev)
+    launches["strategies_krep_n1000"] = timed("6c_krep", phase_krep_n1000,
+                                              dev)
     timed("5_table", phase_table, dev, errs, launches)
     emit({"phase_seconds": seconds})
     print(gpu_line(), flush=True)

@@ -1,7 +1,8 @@
 """Move state between the JAX package and the port.
 
 The JAX package's NamedTuples (``CMAState``, ``LadderCarry``, ``CMAParams``,
-``BBOBInstance``), with every leaf passed as a numpy array (``np.asarray``
+``BBOBInstance``, the strategies' ``KDistCarry`` and ``KRepCarry``), with
+every leaf passed as a numpy array (``np.asarray``
 of each leaf), become the port's tensors on a given device; ``to_numpy``
 goes back.  Fields are matched by name.  uint32 arrays (PRNG keys) become
 the port's int64-held words.  Nothing here imports the JAX package.
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.cmaes import CMAState
 from repro_torch.core.ladder import LadderCarry
 from repro_torch.core.params import CMAParams
+from repro_torch.core.strategies import KDistCarry, KRepCarry
 from repro_torch.fitness.bbob import BBOBInstance
 
 
@@ -46,6 +48,21 @@ def ladder_carry(carry, device) -> LadderCarry:
     fields = {f: tensor(getattr(carry, f), device)
               for f in LadderCarry._fields if f != "states"}
     return LadderCarry(states=cma_state(carry.states, device), **fields)
+
+
+def kdist_carry(carry, device) -> KDistCarry:
+    """K-Distributed's carry: descent-stacked states and (D,) counters."""
+    fields = {f: tensor(getattr(carry, f), device)
+              for f in KDistCarry._fields if f != "states"}
+    return KDistCarry(states=cma_state(carry.states, device), **fields)
+
+
+def krep_carry(carry, device) -> KRepCarry:
+    """K-Replicated's carry of one phase, its group states stacked (G, ...)
+    as ``KReplicated.run_sim`` holds them between chunks."""
+    fields = {f: tensor(getattr(carry, f), device)
+              for f in KRepCarry._fields if f != "state"}
+    return KRepCarry(state=cma_state(carry.state, device), **fields)
 
 
 def to_numpy(tree):

@@ -1,9 +1,18 @@
 """Core CMA-ES in torch, slot-batched — the subset of ``repro/core/cmaes.py``
-that the IPOP ladder runs.
+that the IPOP ladder and the parallel strategies run.
 
 Every state, parameter and population tensor carries a leading slot axis S
 (the JAX package vmaps per-slot functions over it; here it is written out).
-Nothing in this module reads a tensor back to the host.
+On the strategies path the slots are the descents and the population's
+rows come from virtual devices laid out in contiguous ranges, one range per
+descent (``eval_dispatch.Groups``).  Nothing in this module reads a tensor
+back to the host.
+
+Two update structures, as in the JAX package: the fused one
+(``update_from_population``, ``masked_update_from_gram``: one gram-family
+contraction, C′ mirrored from its upper triangle) and the moments op soup
+of ``impl="eager_unfused"`` (``compute_moments`` + ``update_from_moments``:
+separate gram, combine and ``0.5·(C + Cᵀ)``).
 
 Port convention for the eigendecomposition: ``eigen_decompose`` makes the
 largest-magnitude entry of every eigenvector positive (ties go to the first
@@ -12,12 +21,15 @@ trajectories agree across devices wherever the eigenvalues are distinct.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import prng, stopping
+from repro_torch.core.eval_dispatch import Groups
 from repro_torch.core.params import CMAConfig, CMAParams
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 
 class CMAState(NamedTuple):
@@ -72,6 +84,45 @@ def sample_z(keys: torch.Tensor, lam_slots: int, n: int,
     rows = torch.arange(lam_slots, dtype=torch.int64, device=keys.device)
     row_keys = prng.fold_in(keys[:, None, :], rows[None, :])
     return prng.normal(row_keys, (n,), dtype)
+
+
+def tree_select(mask: torch.Tensor, a, b):
+    """Per-slot select over slot-stacked NamedTuples: ``a`` where mask (S,)
+    is True, else ``b``."""
+    def sel(x, y):
+        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)),
+                           x, y)
+    return type(a)(*(sel(x, y) for x, y in zip(a, b)))
+
+
+def sample_population(state: CMAState, keys: torch.Tensor, lam_slots: int,
+                      impl: str = "eager", groups: Optional[Groups] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lam_slots`` points for each sampling key of ``keys`` (K, 2): (Y, X),
+    each (K, λ, n), with x = m + σ·y and y = B·(D ∘ z) from the row-keyed
+    draw (``sample_z``).  Key k samples with the state of slot
+    ``groups.index[k]`` (``None``: one key per slot), through the grouped
+    sample op: the kernel on the card under a kernel tier."""
+    K = keys.shape[0]
+    n = state.m.shape[-1]
+    z = sample_z(keys, lam_slots, n, state.m.dtype)
+    starts = tuple(range(K + 1)) if groups is None else groups.starts
+    y = kops.sample_transform(
+        state.B, state.D, z.reshape(K * lam_slots, n),
+        tuple(s * lam_slots for s in starts), impl).reshape(K, lam_slots, n)
+    m, sigma = state.m, state.sigma
+    if groups is not None:
+        m, sigma = m[groups.index], sigma[groups.index]
+    return y, m[:, None, :] + sigma[:, None, None] * y
+
+
+class Moments(NamedTuple):
+    """What the update needs from a population, per slot."""
+    y_w: torch.Tensor       # (S, n)  Σ w_rk(i)·yᵢ
+    gram: torch.Tensor      # (S, n, n)  Σ w_rk(i)·yᵢyᵢᵀ (rank-μ GEMM)
+    f_sorted: torch.Tensor  # (S, lam_max) ascending, +inf padded
+    x_best: torch.Tensor    # (S, n) best point of this generation
+    n_evals: torch.Tensor   # (S,) int32 valid evaluations
 
 
 def rank_weights(fitness: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -186,3 +237,101 @@ def _finish_update(cfg: CMAConfig, params: CMAParams, state: CMAState,
         stop_reason=state.stop_reason, restarts=state.restarts)
     reason = stopping.check_stop(cfg, params, new, f_sorted)
     return new._replace(stop=reason > 0, stop_reason=reason)
+
+
+# ---------------------------------------------------------------------------
+# the strategies path's updates (moments soup, fused, from a reduced gram)
+# ---------------------------------------------------------------------------
+
+def compute_moments(y, fitness, x, params: CMAParams, lam_max: int,
+                    impl: str = "eager") -> Moments:
+    """Moments of populations y, x (S, λ, n) with fitness (S, λ)."""
+    w, f_sorted, x_best, n_evals = population_stats(fitness, x, params,
+                                                    lam_max)
+    y_w = (w[:, None, :] @ y)[:, 0]
+    gram = kops.rank_mu_gram(y, w, impl=impl)
+    return Moments(y_w=y_w, gram=gram, f_sorted=f_sorted, x_best=x_best,
+                   n_evals=n_evals)
+
+
+def update_from_moments(cfg: CMAConfig, params: CMAParams, state: CMAState,
+                        mom: Moments, impl: str = "eager",
+                        eigen: str = "lazy") -> CMAState:
+    """One generation from population moments (the op soup): whitened step,
+    paths, ``covariance_combine`` and the ``0.5·(C + Cᵀ)`` repair, then
+    ``_finish_update``.  No masking here."""
+    n = cfg.n
+    dt = state.m.dtype
+    v = lambda a: a[:, None]                                 # noqa: E731
+    y_w, gram = mom.y_w, mom.gram
+    c_sig = params.c_sigma
+    t = (state.B.transpose(-1, -2) @ y_w[..., None])[..., 0]
+    inv_sqrt_C_yw = (state.B @ (t / torch.clamp(state.D, min=1e-300))
+                     [..., None])[..., 0]
+    p_sigma = v(1.0 - c_sig) * state.p_sigma + v(torch.sqrt(
+        c_sig * (2.0 - c_sig) * params.mu_eff)) * inv_sqrt_C_yw
+    ps_norm = torch.sqrt(torch.sum(p_sigma * p_sigma, -1))
+    gen1 = (state.gen + 1).to(dt)
+    h_sig_denom = torch.sqrt(1.0 - (1.0 - c_sig) ** (2.0 * gen1))
+    h_sigma = (ps_norm / h_sig_denom / params.chi_n
+               < 1.4 + 2.0 / (n + 1.0)).to(dt)
+    c_c = params.c_c
+    p_c = v(1.0 - c_c) * state.p_c + v(h_sigma * torch.sqrt(
+        c_c * (2.0 - c_c) * params.mu_eff)) * y_w
+    c_1, c_mu = params.c_1, params.c_mu
+    decay = 1.0 - c_1 - c_mu + (1.0 - h_sigma) * c_1 * c_c * (2.0 - c_c)
+    C_new = kops.covariance_combine(state.C, gram, p_c, decay, c_mu, c_1,
+                                    impl=impl)
+    C_new = 0.5 * (C_new + C_new.transpose(-1, -2))
+    return _finish_update(cfg, params, state, mom.f_sorted, mom.x_best,
+                          mom.n_evals, C_new, p_sigma, p_c, y_w, eigen)
+
+
+def update_from_population(cfg: CMAConfig, params: CMAParams,
+                           state: CMAState, y, fitness, x,
+                           impl: str = "auto",
+                           eigen: str = "lazy") -> CMAState:
+    """One generation straight from the population through the fused
+    update op (``kops.gen_update``: the update kernel on the card under a
+    kernel tier)."""
+    w, f_sorted, x_best, n_evals = population_stats(fitness, x, params,
+                                                    fitness.shape[-1])
+    C_new, p_sigma_new, p_c_new, y_w = kops.gen_update(
+        state.C, state.B, state.D, state.p_sigma, state.p_c, y, w,
+        gen_coef(params, state), impl=impl)
+    return _finish_update(cfg, params, state, f_sorted, x_best, n_evals,
+                          C_new, p_sigma_new, p_c_new, y_w, eigen)
+
+
+def masked_update(cfg: CMAConfig, params: CMAParams, state: CMAState,
+                  mom: Moments, impl: str = "eager",
+                  eigen: str = "lazy") -> CMAState:
+    """``update_from_moments``, except for slots that already stopped."""
+    new = update_from_moments(cfg, params, state, mom, impl=impl, eigen=eigen)
+    return tree_select(state.stop, state, new)
+
+
+def masked_update_fused(cfg: CMAConfig, params: CMAParams, state: CMAState,
+                        y, fitness, x, impl: str = "auto",
+                        eigen: str = "lazy") -> CMAState:
+    """``update_from_population``, except for slots that already stopped."""
+    new = update_from_population(cfg, params, state, y, fitness, x,
+                                 impl=impl, eigen=eigen)
+    return tree_select(state.stop, state, new)
+
+
+def masked_update_from_gram(cfg: CMAConfig, params: CMAParams,
+                            state: CMAState, gram, y_w, f_sorted, x_best,
+                            n_evals, eigen: str = "lazy") -> CMAState:
+    """The generation from an already reduced gram family (the strategies'
+    replicated tail): ``gram`` (S, n, n) and ``y_w`` (S, n) normalised to
+    unit total weight, through the plain ``fused_update_from_gram`` (as the
+    JAX package calls its ref), except for slots that already stopped."""
+    c = gen_coef(params, state)
+    C_new, p_sigma_new, p_c_new, y_w = kref.fused_update_from_gram(
+        state.C, state.B, state.D, state.p_sigma, state.p_c, gram, y_w,
+        c["c_sigma"], c["mu_eff"], c["c_c"], c["c_1"], c["c_mu"],
+        c["chi_n"], c["gen1"])
+    new = _finish_update(cfg, params, state, f_sorted, x_best, n_evals,
+                         C_new, p_sigma_new, p_c_new, y_w, eigen)
+    return tree_select(state.stop, state, new)

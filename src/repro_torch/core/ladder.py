@@ -16,8 +16,10 @@ Schedules: ``sequential`` (one slot walks the ladder) and ``concurrent``
 (``kernels/ops.py``): the row-keyed draw handed to the sample kernel
 (``"auto"``) or the counter stream drawn inside it (``"kernel_rng"``).
 ``slots_gen_step(bucket_cap=k)`` is the step of the rung-bucketed programs
-(``core/bucketed.py``).  Not ported yet (ROADMAP.md): the flat eigen
-schedule, campaigns over many problems, the strategies path.
+(``core/bucketed.py``).  ``run_concurrent`` runs all rungs on the
+K-Distributed strategy instead (``core/strategies.py``).  Not ported yet
+(ROADMAP.md): the flat eigen schedule, campaigns over many problems, the
+``eager`` tiers on the ladder.
 """
 from __future__ import annotations
 
@@ -60,14 +62,6 @@ def fresh_state(cfg: CMAConfig, kd: torch.Tensor,
     lo, hi = domain
     x0 = prng.uniform(k_x0, (cfg.n,), cfg.tdtype, lo, hi)
     return cmaes.init_state(cfg, x0)
-
-
-def _tree_select(mask: torch.Tensor, a, b):
-    """Per-slot select over slot-stacked NamedTuples: mask (S,)."""
-    def sel(x, y):
-        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)),
-                           x, y)
-    return type(a)(*(sel(x, y) for x, y in zip(a, b)))
 
 
 def _slots_fused_update(cfg: CMAConfig, params_k, states: cmaes.CMAState,
@@ -134,7 +128,7 @@ def _generation_from_sample(cfg: CMAConfig, params_k,
         cmaes.gen_coef(params_k, states))
     new = cmaes._finish_update(cfg, params_k, states, f_sorted, x_best,
                                n_evals, C_new, ps_new, pc_new, y_w, eigen)
-    return _tree_select(states.stop, states, new)
+    return cmaes.tree_select(states.stop, states, new)
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +196,7 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
     kgs = gen_key(kds, carry.states.gen)
     upd = _slots_fused_update(cfg, params_k, carry.states, kgs, fitness_fn,
                               eigen, impl)
-    new_states = _tree_select(ran, upd, carry.states)
+    new_states = cmaes.tree_select(ran, upd, carry.states)
 
     total_fevals = carry.total_fevals + torch.where(ran, lam_k, 0).sum()
 
@@ -235,7 +229,7 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
 
     fresh = fresh_state(cfg, slot_key(base_key, slot_ids, inc_new), domain)
     fresh = fresh._replace(restarts=inc_new)
-    states_out = _tree_select(restart, fresh, new_states)
+    states_out = cmaes.tree_select(restart, fresh, new_states)
 
     return LadderCarry(
         states=states_out, k_idx=k_new, incarnation=inc_new,
@@ -243,21 +237,43 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
         best_f=best_f, best_x=best_x), trace
 
 
+def stack_traces(traces):
+    """Per-generation NamedTuple traces stacked along a leading time axis."""
+    return type(traces[0])(*(torch.stack(leaves) for leaves in zip(*traces)))
+
+
+def scan(step_fn: Callable, carry, xs: torch.Tensor):
+    """``lax.scan`` in eager torch: ``step_fn(carry, x) -> (carry, trace)``
+    for each x along the leading axis of ``xs``; returns the final carry
+    and the stacked traces."""
+    traces = []
+    for x in xs:
+        carry, tr = step_fn(carry, x)
+        traces.append(tr)
+    return carry, stack_traces(traces)
+
+
 def scan_eigen_blocks(step_fn: Callable, carry, interval: int,
-                      n_blocks: int):
+                      n_blocks: int, xs: Optional[torch.Tensor] = None):
     """``n_blocks`` blocks of ``interval`` generations: the first
     ``interval − 1`` keep B/D frozen (``"defer"``), the last refreshes them
     with one batched ``eigh`` (``"always"``).  ``step_fn(carry, eigen) ->
-    (carry, trace)``; returns the final carry and the per-generation traces
-    stacked along a leading axis of length ``n_blocks·interval``."""
+    (carry, trace)``, or with ``xs`` (leading axis ``n_blocks·interval``,
+    e.g. the strategies' per-generation keys) ``step_fn(carry, x, eigen)``
+    with one slice of ``xs`` per generation.  Returns the final carry and
+    the step's own trace type, stacked along a leading axis of length
+    ``n_blocks·interval``."""
+    interval, n_blocks = int(interval), int(n_blocks)
     traces = []
-    for _ in range(int(n_blocks)):
-        for i in range(int(interval)):
-            carry, tr = step_fn(carry,
-                                "always" if i == interval - 1 else "defer")
+    for b in range(n_blocks):
+        for i in range(interval):
+            eigen = "always" if i == interval - 1 else "defer"
+            if xs is None:
+                carry, tr = step_fn(carry, eigen)
+            else:
+                carry, tr = step_fn(carry, xs[b * interval + i], eigen)
             traces.append(tr)
-    return carry, LadderTrace(*(torch.stack(leaves) for leaves in
-                                zip(*traces)))
+    return carry, stack_traces(traces)
 
 
 @dataclasses.dataclass
@@ -280,7 +296,10 @@ class LadderEngine:
     def __post_init__(self):
         if self.schedule not in ("sequential", "concurrent"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        ops.validate_impl(self.impl)
+        if ops.validate_impl(self.impl) not in ops.KERNEL_TIERS:
+            raise NotImplementedError(
+                f"impl={self.impl!r} on the ladder is not ported; the ladder "
+                f"takes {ops.KERNEL_TIERS} (ROADMAP.md, queue A item 7)")
         if self.eigen_schedule != "nested":
             raise NotImplementedError(
                 f"eigen_schedule={self.eigen_schedule!r} is not ported; only "
@@ -308,9 +327,7 @@ class LadderEngine:
 
     def base_key(self, key) -> torch.Tensor:
         """An int seed or a (2,) key tensor, as a key on the engine's device."""
-        if isinstance(key, int):
-            return prng.PRNGKey(key, device=self.device)
-        return torch.as_tensor(key, dtype=torch.int64, device=self.device)
+        return prng.as_key(key, self.device)
 
     def init_carry(self, base_key: torch.Tensor) -> LadderCarry:
         S, dev = self.n_slots, self.device
@@ -359,3 +376,34 @@ class LadderEngine:
         """Single-problem run; ``key`` is an int seed or a (2,) key."""
         return self.run_scan(self.base_key(key), fitness_fn,
                              self.default_gens(total_gens))
+
+
+# ---------------------------------------------------------------------------
+# concurrent schedule on the strategies' virtual devices
+# ---------------------------------------------------------------------------
+
+def run_concurrent(n: int, n_devices: int, key, fitness_fn: Callable,
+                   total_gens: int, lam_start: int = 12,
+                   kmax_exp: Optional[int] = None,
+                   domain: Tuple[float, float] = (-5.0, 5.0),
+                   sigma0_frac: float = 0.25, impl: str = "auto",
+                   dtype: str = "float64", drop_prob: float = 0.0,
+                   eigen_interval: Optional[int] = None, device=None):
+    """All rungs concurrently through K-Distributed's program: one chunk of
+    ``total_gens`` generations, nested in eigen blocks when
+    ``eigen_interval > 1`` divides ``total_gens``.  ``key`` is an int seed
+    or a (2,) key; ``device=None`` runs on the CUDA device and raises
+    without one.  Returns ``(kd, carry, trace_dict)``, the trace as numpy,
+    as the JAX package's ``run_concurrent`` does."""
+    from repro_torch.core.strategies import KDistributed
+
+    kd = KDistributed(n=n, n_devices=n_devices, lam_start=lam_start,
+                      lam_slots=lam_start, kmax_exp=kmax_exp, domain=domain,
+                      sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
+                      drop_prob=drop_prob, eigen_interval=eigen_interval,
+                      device=device)
+    key = prng.as_key(key, kd.device)
+    carry0 = kd.init_carry(prng.fold_in(key, 0))
+    carry, tr = kd.chunk_fn(fitness_fn)(carry0,
+                                        prng.split(key, int(total_gens)))
+    return kd, carry, {f: v.cpu().numpy() for f, v in zip(tr._fields, tr)}

@@ -124,13 +124,23 @@ def make_params(cfg: CMAConfig, lam: Optional[int] = None,
         max_iter=i32(max_iter))
 
 
+def stack_params(params: list) -> CMAParams:
+    """Per-descent params stacked along a leading descent axis."""
+    return CMAParams(*(torch.stack(leaves) for leaves in zip(*params)))
+
+
+def broadcast_params(params: CMAParams, S: int) -> CMAParams:
+    """One descent's params repeated over S slots (leaves (S, ...), views)."""
+    return CMAParams(*(leaf.expand((S,) + leaf.shape) for leaf in params))
+
+
 def ladder_params(cfg: CMAConfig, lam_start: int, kmax_exp: int,
                   device=None) -> CMAParams:
     """Stacked params for the IPOP ladder: rung k has λ = 2ᵏ·lam_start; every
     leaf carries a leading (kmax_exp+1,) rung axis."""
-    rungs = [make_params(cfg, lam=(2 ** k) * lam_start, device=device)
-             for k in range(kmax_exp + 1)]
-    return CMAParams(*(torch.stack(leaves) for leaves in zip(*rungs)))
+    return stack_params([make_params(cfg, lam=(2 ** k) * lam_start,
+                                     device=device)
+                         for k in range(kmax_exp + 1)])
 
 
 def bucket_config(cfg: CMAConfig, lam_bucket: int) -> CMAConfig:

@@ -68,6 +68,13 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def as_key(key, device=None) -> torch.Tensor:
+    """An int seed (``PRNGKey``) or a (2,) key, as a key on ``device``."""
+    if isinstance(key, int):
+        return PRNGKey(key, device=device)
+    return torch.as_tensor(key, dtype=torch.int64, device=device)
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` is an int or an integer tensor that
     broadcasts against ``key[..., 0]``."""

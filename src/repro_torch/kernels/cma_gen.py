@@ -31,14 +31,16 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SUFFIX as _SUFFIX
+from repro_torch.kernels._build import check as _check
+from repro_torch.kernels._build import launch as _launch
 from repro_torch.kernels.ref import RNG_MAX_DIM
 
 #: per-slot scalar coefficients of ``gen_update``, in column order
 COEF_FIELDS = ("c_sigma", "mu_eff", "c_c", "c_1", "c_mu", "chi_n", "gen1")
 
-LAUNCHES = {"cma_gen_sample": 0, "cma_gen_sample_eval": 0,
-            "cma_gen_update": 0, "cma_gen_sample_rng": 0,
-            "cma_gen_sample_rng_eval": 0, "cma_sample_z_rng": 0}
+LAUNCHES = _build.LAUNCHES
+reset_launches = _build.reset_launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -50,44 +52,11 @@ _SIGNATURES = {
     ("cma_gen_sample", "cma_sample_z_rng"): [_P] * 2 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_gen_sample_tile_cols"): [],
 }
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _fn(lib_name: str, fn_name: str, dtype: torch.dtype):
-    fn = getattr(_build.library(lib_name), f"{fn_name}_{_SUFFIX[dtype]}")
-    fn.argtypes = _SIGNATURES[(lib_name, fn_name)]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> int:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"one on {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t.data_ptr()
-
-
-def _launch(fn, label: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{label}: CUDA launch error {err}")
-    LAUNCHES[label] += 1
+    return _build.function(lib_name, fn_name, dtype,
+                           _SIGNATURES[(lib_name, fn_name)])
 
 
 def _sample_operands(m, sigma, B, D, Z):

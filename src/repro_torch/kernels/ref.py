@@ -1,10 +1,14 @@
-"""Plain PyTorch versions of the fused generation kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
-Port of ``repro/kernels/ref.py:53-262``.  These are the oracles the CUDA
-kernels of ``kernels/cma_gen.py`` are held against (tests, ``chip_smoke.py``)
-and the path ``kernels/ops.py`` takes for tensors on the CPU.  They are
-slot-batched: every argument carries a leading slot axis S, per-slot
-scalars are (S,) tensors.
+Port of ``repro/kernels/ref.py:15-262``.  These are the oracles the CUDA
+kernels of ``kernels/cma_gen.py``, ``cma_sample.py`` and ``cma_update.py``
+are held against (tests, ``chip_smoke.py``) and the path ``kernels/ops.py``
+takes for tensors on the CPU and under the ``eager`` tiers.  The fused
+generation ops are slot-batched: every argument carries a leading slot axis
+S, per-slot scalars are (S,) tensors.  The ops of the strategies path
+(``sample_transform`` … ``rank_mu_update``) take the JAX package's
+unbatched arguments or any leading batch axes; ``sample_groups`` is the
+grouped form of the sample kernel.
 
 Convention shared with the update kernel: C′ is made exactly symmetric by
 mirroring its upper triangle (i ≤ j), so no ``0.5·(C + Cᵀ)`` pass is needed
@@ -27,6 +31,57 @@ from repro_torch.core import prng
 
 #: λ and n must stay below 2¹⁶: the counter packs (row, col) into 32 bits
 RNG_MAX_DIM = 1 << 16
+
+
+def sample_transform(B, D, Z):
+    """Y = Z·diag(D)·Bᵀ: y_k = B·(D ∘ z_k) (paper eq. 1, batched).  B (n, n),
+    D (n,), Z (λ, n) → (λ, n); leading batch axes broadcast."""
+    return (Z * D[..., None, :]) @ B.transpose(-1, -2)
+
+
+def sample_points(m, sigma, B, D, Z):
+    """X = m + σ·(Z·diag(D))·Bᵀ (λ, n)."""
+    return m[..., None, :] + sigma * sample_transform(B, D, Z)
+
+
+def sample_groups(B, D, Z, starts, m=None, sigma=None):
+    """The grouped sample kernel's function: rows ``starts[g]:starts[g+1]``
+    of Z (R, n) sampled with group g's B (G, n, n) and D (G, n) by
+    ``sample_transform``, or by ``sample_points`` with m (G, n) and
+    sigma (G,) when they are given.  Each row depends only on its own Z
+    row and its group, so a group's rows equal the unbatched op's."""
+    parts = []
+    for g, (a, b) in enumerate(zip(starts, starts[1:])):
+        if m is None:
+            parts.append(sample_transform(B[g], D[g], Z[a:b]))
+        else:
+            parts.append(sample_points(m[g], sigma[g], B[g], D[g], Z[a:b]))
+    return torch.cat(parts) if parts else torch.empty_like(Z)
+
+
+def rank_mu_gram(Y, w):
+    """Σᵢ wᵢ yᵢyᵢᵀ as one GEMM, Yᵀ·(diag(w)·Y) (paper eq. 3).  Y (λ, n),
+    w (λ,) → (n, n); leading batch axes broadcast."""
+    return Y.transpose(-1, -2) @ (w[..., :, None] * Y)
+
+
+def _per_matrix(a, C):
+    """A scalar or a per-slot (S,) coefficient, shaped to scale (S, n, n)."""
+    return torch.as_tensor(a, dtype=C.dtype, device=C.device)[..., None, None]
+
+
+def covariance_combine(C, gram, p_c, decay, c_mu, c_1):
+    """C′ = decay·C + c_μ·gram + c₁·p_c p_cᵀ (paper eq. 3 epilogue).  The
+    coefficients are scalars or (S,) tensors of a slot-batched C."""
+    outer = p_c[..., :, None] * p_c[..., None, :]
+    return (_per_matrix(decay, C) * C + _per_matrix(c_mu, C) * gram
+            + _per_matrix(c_1, C) * outer)
+
+
+def rank_mu_update(C, Y, w, p_c, decay, c_mu, c_1):
+    """The rank-μ update kernel's function: ``covariance_combine`` of
+    ``rank_mu_gram(Y, w)``."""
+    return covariance_combine(C, rank_mu_gram(Y, w), p_c, decay, c_mu, c_1)
 
 
 def whiten_floor(dtype: torch.dtype) -> float:

@@ -1,6 +1,7 @@
-"""The port's plain generation ops (repro_torch/kernels/ref.py) against
+"""The port's plain kernel ops (repro_torch/kernels/ref.py) against
 repro.kernels.ref in float64, and in float32 against the JAX package's
-Pallas kernels in interpret mode; the CUDA wrappers refuse CPU tensors."""
+Pallas kernels in interpret mode; the dispatch of kernels/ops.py by tier
+and device; the CUDA wrappers refuse CPU tensors."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +11,10 @@ import torch
 from repro.fitness import bbob as jb
 from repro.kernels import cma_gen as jcg
 from repro.kernels import ref as jref
+from repro.kernels.cma_sample import cma_sample as j_cma_sample
+from repro.kernels.cma_update import cma_rank_mu_update as j_rank_mu_update
 from repro_torch.fitness import bbob as tb
-from repro_torch.kernels import cma_gen, ops
+from repro_torch.kernels import cma_gen, cma_sample, cma_update, ops
 from repro_torch.kernels import ref as tref
 
 # (S, lam, n): odd n, λ < 8, S > 1
@@ -200,11 +203,210 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_impl_vocabulary_is_auto_only():
-    """The vocabulary of this slice: ``auto`` and ``kernel_rng``; the JAX
-    package's names are refused."""
-    assert ops.IMPL_CHOICES == ("auto", "kernel_rng")
+    """The port's vocabulary: the kernel tiers ``auto`` and ``kernel_rng``
+    and the plain tiers ``eager`` and ``eager_unfused``; each validates to
+    itself (``auto`` never to ``kernel_rng``), and the JAX package's names
+    are refused."""
+    assert ops.IMPL_CHOICES == ("auto", "kernel_rng", "eager",
+                                "eager_unfused")
+    assert ops.KERNEL_TIERS == ("auto", "kernel_rng")
     for impl in ops.IMPL_CHOICES:
         assert ops.validate_impl(impl) == impl
-    for impl in ("xla", "pallas_rng"):
+    for impl in ("xla", "xla_unfused", "pallas", "pallas_rng"):
         with pytest.raises(ValueError):
             ops.validate_impl(impl)
+
+
+# ---------------------------------------------------------------------------
+# the strategies path's ops: sample_transform … rank_mu_update (kernels 7, 8)
+# ---------------------------------------------------------------------------
+
+def _ops_inputs(lam, n, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    a = _inputs(1, lam, n, seed)
+    w = rng.permutation(np.where(np.arange(lam) < lam // 2,
+                                 rng.uniform(0.01, 1.0, lam), 0.0))
+    out = dict(m=a["m"][0], sigma=np.float64(a["sigma"][0]), B=a["B"][0],
+               D=a["D"][0], Z=a["Z"][0], C=a["C"][0], Y=a["Y"][0], w=w,
+               p_c=a["p_c"][0], decay=0.7, c_mu=0.2, c_1=0.05)
+    return {k: np.asarray(v, dtype) for k, v in out.items()}
+
+
+OPS_SHAPES = [(5, 7), (12, 9), (3, 13), (16, 4)]       # (λ, n): odd n, λ < 8
+
+
+@pytest.mark.parametrize("lam,n", OPS_SHAPES)
+def test_strategy_ops_match_jax_ref(lam, n):
+    """The five ops of ``repro.kernels.ref`` (:15-46), float64, to 1e-12."""
+    a = _ops_inputs(lam, n)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    pairs = [
+        (tref.sample_transform(t["B"], t["D"], t["Z"]),
+         jref.sample_transform(j["B"], j["D"], j["Z"])),
+        (tref.sample_points(t["m"], t["sigma"], t["B"], t["D"], t["Z"]),
+         jref.sample_points(j["m"], j["sigma"], j["B"], j["D"], j["Z"])),
+        (tref.rank_mu_gram(t["Y"], t["w"]), jref.rank_mu_gram(j["Y"], j["w"])),
+        (tref.covariance_combine(t["C"], t["Y"].T @ t["Y"], t["p_c"],
+                                 0.7, 0.2, 0.05),
+         jref.covariance_combine(j["C"], j["Y"].T @ j["Y"], j["p_c"],
+                                 0.7, 0.2, 0.05)),
+        (tref.rank_mu_update(t["C"], t["Y"], t["w"], t["p_c"], 0.7, 0.2,
+                             0.05),
+         jref.rank_mu_update(j["C"], j["Y"], j["w"], j["p_c"], 0.7, 0.2,
+                             0.05))]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                                   atol=1e-14)
+    # every tier's op on the CPU is the plain version
+    for impl in ops.IMPL_CHOICES:
+        assert torch.equal(ops.sample_transform(t["B"], t["D"], t["Z"],
+                                                impl=impl), pairs[0][0])
+        assert torch.equal(ops.rank_mu_update(
+            t["C"], t["Y"], t["w"], t["p_c"], 0.7, 0.2, 0.05, impl=impl),
+            pairs[4][0])
+
+
+def test_sample_groups_is_the_per_group_op():
+    """The grouped form (kernel 7's function): each group's rows are the
+    unbatched op on that group's state, row for row; empty groups too."""
+    G, n, starts = 4, 6, (0, 12, 12, 36, 40)
+    rng = np.random.default_rng(3)
+    B = torch.tensor(np.linalg.qr(rng.normal(size=(G, n, n)))[0])
+    D = torch.tensor(rng.uniform(0.5, 2.0, (G, n)))
+    m, sigma = torch.tensor(rng.normal(size=(G, n))), torch.rand(G).double()
+    Z = torch.tensor(rng.normal(size=(starts[-1], n)))
+    Y = ops.sample_transform(B, D, Z, starts)
+    X = ops.sample_points(m, sigma, B, D, Z, starts)
+    for g, (a, b) in enumerate(zip(starts, starts[1:])):
+        assert torch.equal(Y[a:b], tref.sample_transform(B[g], D[g], Z[a:b]))
+        assert torch.equal(X[a:b], tref.sample_points(m[g], sigma[g], B[g],
+                                                      D[g], Z[a:b]))
+    with pytest.raises(ValueError):
+        ops.sample_transform(B, D, Z)                # starts is needed
+    with pytest.raises(ValueError):
+        cma_sample.check_starts((0, 12, 5, 36, 40), G, 40)
+    with pytest.raises(ValueError):
+        cma_sample.check_starts((0, 12, 40), G, 40)
+
+
+@pytest.mark.parametrize("starts,rows", [((0, 12, 36, 84, 92), 64),
+                                         ((0, 0, 130, 131), 64),
+                                         ((0, 6144), 64)])
+def test_sample_tile_table_covers_each_group(starts, rows):
+    """The kernel's row tiles cover every group's rows exactly once, hold at
+    most ``rows`` rows and never cross a group boundary."""
+    tiles = cma_sample._tile_table(starts, rows, torch.device("cpu"))
+    assert tiles.dtype == torch.int32 and tiles.shape[1] == 3
+    covered = []
+    for g, r0, r1 in tiles.tolist():
+        assert starts[g] <= r0 < r1 <= starts[g + 1] and r1 - r0 <= rows
+        covered += list(range(r0, r1))
+    assert covered == list(range(starts[-1]))
+
+
+def test_strategy_ops_f32_match_pallas_interpret():
+    """float32: the plain versions against the TPU kernels 7 and 8 in
+    interpret mode (which compute in float32), to 1e-4 relative."""
+    lam, n = 12, 9
+    a = _ops_inputs(lam, n, seed=4, dtype=np.float32)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    want = j_cma_sample(j["m"], j["sigma"], j["B"], j["D"], j["Z"],
+                        interpret=True)
+    got = ops.sample_points(t["m"], t["sigma"], t["B"], t["D"], t["Z"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    want = j_cma_sample(jnp.zeros(n, jnp.float32), jnp.float32(1.0), j["B"],
+                        j["D"], j["Z"], interpret=True)
+    got = ops.sample_transform(t["B"], t["D"], t["Z"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    want = j_rank_mu_update(j["C"], j["Y"], j["w"], j["p_c"], 0.7, 0.2, 0.05,
+                            interpret=True)
+    got = ops.rank_mu_update(t["C"], t["Y"], t["w"], t["p_c"], 0.7, 0.2, 0.05)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+    want = j_rank_mu_update(jnp.zeros((n, n), jnp.float32), j["Y"], j["w"],
+                            jnp.zeros(n, jnp.float32), 0.0, 1.0, 0.0,
+                            interpret=True)
+    got = ops.rank_mu_gram(t["Y"], t["w"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_zero_weight_rows_leave_rank_mu_update_unchanged():
+    a = _ops_inputs(9, 6)
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    Yp = torch.cat([t["Y"], torch.randn(5, 6, dtype=torch.float64)])
+    wp = torch.cat([t["w"], torch.zeros(5, dtype=torch.float64)])
+    torch.testing.assert_close(
+        ops.rank_mu_update(t["C"], Yp, wp, t["p_c"], 0.7, 0.2, 0.05),
+        ops.rank_mu_update(t["C"], t["Y"], t["w"], t["p_c"], 0.7, 0.2, 0.05),
+        rtol=1e-14, atol=1e-15)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Every tensor looks like a CUDA tensor to ``ops``, and the kernel
+    wrappers of kernels 7 and 8 record their calls instead of launching."""
+    calls = []
+    monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
+
+    def fake_sample(B, D, Z, starts, m=None, sigma=None):
+        calls.append("cma_sample")
+        return tref.sample_groups(B, D, Z, starts, m, sigma)
+
+    def fake_update(C, Y, w, p_c, coef):
+        calls.append("cma_rank_mu_update")
+        assert coef.shape == (C.shape[0], 3)
+        return tref.rank_mu_update(C, Y, w, p_c, *coef.unbind(1))
+
+    monkeypatch.setattr(cma_sample, "sample_groups", fake_sample)
+    monkeypatch.setattr(cma_update, "rank_mu_update", fake_update)
+    return calls
+
+
+def test_eager_tiers_take_the_plain_version_on_the_card(fake_card):
+    """On a CUDA tensor the kernel tiers launch kernels 7 and 8 and the
+    eager tiers never do: ``eager_unfused``'s ``rank_mu_update`` is the
+    plain version (the JAX package sends ``xla_unfused`` to its kernel)."""
+    a = _ops_inputs(8, 5)
+    t = {k: torch.tensor(v) for k, v in a.items()}
+
+    def run_all(impl):
+        return [ops.sample_transform(t["B"], t["D"], t["Z"], impl=impl),
+                ops.sample_points(t["m"], t["sigma"], t["B"], t["D"], t["Z"],
+                                  impl=impl),
+                ops.rank_mu_gram(t["Y"], t["w"], impl=impl),
+                ops.rank_mu_update(t["C"], t["Y"], t["w"], t["p_c"], 0.7,
+                                   0.2, 0.05, impl=impl)]
+
+    for impl in ("eager", "eager_unfused"):
+        plain = run_all(impl)
+        assert fake_card == []
+    assert plain[3].equal(tref.rank_mu_update(t["C"], t["Y"], t["w"],
+                                              t["p_c"], 0.7, 0.2, 0.05))
+    for impl in ops.KERNEL_TIERS:
+        fake_card.clear()
+        got = run_all(impl)
+        assert fake_card == ["cma_sample", "cma_sample", "cma_rank_mu_update",
+                             "cma_rank_mu_update"]
+        for g, p in zip(got, plain):
+            torch.testing.assert_close(g, p, rtol=1e-13, atol=1e-14)
+    assert ops.use_fused("auto") and ops.use_fused("eager")
+    assert not ops.use_fused("eager_unfused")
+
+
+def test_kernel_7_and_8_wrappers_refuse_cpu_tensors():
+    a = _ops_inputs(6, 4)
+    t = {k: torch.tensor(v) for k, v in a.items()}
+    before = dict(cma_gen.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        cma_sample.sample_groups(t["B"][None], t["D"][None], t["Z"], (0, 6))
+    with pytest.raises(ValueError, match="CUDA"):
+        cma_update.rank_mu_update(t["C"][None], t["Y"][None], t["w"][None],
+                                  t["p_c"][None],
+                                  torch.ones(1, 3, dtype=torch.float64))
+    assert cma_gen.LAUNCHES == before
+    assert {"cma_sample", "cma_rank_mu_update"} <= set(cma_gen.LAUNCHES)
