@@ -27,7 +27,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    — in both forms (Y, and X = m + σ·Y); the rank-μ update kernel (row 8,
    ``cma_rank_mu_update``) at (λ, n) = (12, 1000), (3072, 1000) and
    (192, 40), directly and through ``rank_mu_gram``'s zero-C form, C′
-   exactly symmetric; float64 (≤ 1e-12) and float32 (≤ 1e-4);
+   exactly symmetric; float64 (≤ 1e-12) and float32 (≤ 1e-4).  The flash
+   attention kernel (row 9) at qwen2-0.5b's prefill (4, 2048, 14 heads, 2
+   KV heads, D=64), with windows 32 and 100 that start mid-tile, at a
+   ragged S=129, at D=32 and D=128 and once non-causal; the WKV kernel
+   (row 10) at rwkv6-3b's prefill (4, 1024, 40 heads, D=64) with a
+   non-zero initial state, final state compared too, and at D=32 and 128;
+   both in float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element
+   by element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value|
+   of the element's row, its last axis);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -46,7 +54,8 @@ Phases, one JSON line each with its seconds; any failed check raises
    (``compare_small_runs``); and on the card bucketed against ladder, the
    ints of every executed generation exactly;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
-   eval-fused sample kernel (n=40, λ_max=3072, 100 000 evaluations);
+   eval-fused sample kernel (n=40, λ_max=3072, 50 000 evaluations: cut
+   from 100 000 to keep the run within half its time limit);
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
    in-kernel RNG eval kernel), then again with the speculative segment
    driver (``overlap=True``), whose result must be bit-identical;
@@ -66,13 +75,43 @@ Phases, one JSON line each with its seconds; any failed check raises
 6c. ``KReplicated.run_sim`` at n=1000, 8 devices, 8 generations of each
    phase, on the card: ms per generation per phase and the grouped sample
    kernel's launches;
+7. the serving path at full width: first the launcher itself
+   (``repro_torch.launch.serve.main``, default flags: 4 prompts of 16
+   tokens), which must launch only its arch's kernel, once per layer; then
+   ``Engine.generate`` over the launcher's config (``serve_config``) on
+   qwen2-0.5b (24 layers, d_model 896, vocab 151 936, ``attn_impl="flash"``,
+   bf16 compute over f32 weights from the port's init), 4 prompts of 2048
+   tokens, 32 new tokens, after one warm-up call at the same shapes:
+   prefill ms, decode ms per token and tokens/s, peak allocated
+   memory, exactly 24 flash-attention launches (one prefill) and no other
+   kernel; the first decode step's logits (position S) against
+   ``lm.forward``'s last logits over the prompt plus the first new token
+   (≤ 2e-2 of the largest |logit| in bfloat16, ≤ 1e-4 in float32);
+7b. the same for rwkv6-3b (32 layers, d_model 2560), 4 prompts of 1024
+   tokens: exactly 32 WKV launches, the check on the cached WKV state
+   (≤ 5e-2 in bfloat16: 32 layers of two rounding orders, ≤ 1e-4 in
+   float32);
+7c. card against CPU: both archs at full width and 2 layers in float32,
+   the same weights, 2 prompts of 50 tokens: prefill logits, every cache
+   leaf and 8 teacher-forced decode steps' logits within 1e-4 of their
+   largest |value|;
+8. the neural-fitness path: ``run_ipop(make_nn_fitness(qwen2-0.5b at full
+   width, SyntheticTokens B=4, S=512), n=26, λ_start=12, kmax_exp=1,
+   max_evals=480, backend="bucketed")``: ms per evaluation, baseline CE
+   (θ = 0) and best CE, evaluations, 24 flash launches per evaluated row;
+   phases 7, 7b and 8 then profile one prefill, eight decode steps and
+   four evaluations under ``torch.profiler`` (device busy time and share,
+   aten calls, the kernels with the most device time);
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4, 4b, 6, 6b and 6c) its launches, its time, the plain version's time,
+   4, 4b, 6, 6b, 6c, 7, 7b, 7c and 8) its launches, its time, the plain version's time,
    one PyTorch call's time (none for the Z stream alone) and the least
    time the card could take (bound) at that path's shape (row 7: at every
    row layout of its paths; row 8, which no path launches: at phase 2's
    shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
-   phase 6's layout for row 7 and (3072, 1000) for row 8.
+   phase 6's layout for row 7, (3072, 1000) for row 8 and the serving
+   prefill's shapes for rows 9 and 10 (bound: bytes over 3.35 TB/s, or the
+   unmasked work over 989 TFLOP/s for bf16 inputs and 67 for f32; one
+   SDPA call is row 9's library time, row 10 has none).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -91,13 +130,19 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import convert  # noqa: E402
+from repro_torch import configs, convert  # noqa: E402
 from repro_torch.core import (bucketed, cmaes, ipop, ladder,  # noqa: E402
                               strategies)
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
+from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
+from repro_torch.fitness.nn_fitness import make_nn_fitness  # noqa: E402
 from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
-                                 cma_update, ops, ref)
+                                 cma_update, flash_attention, ops, ref,
+                                 rwkv6_wkv)
+from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.models import layers, lm  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FP64 on the tensor cores and
 # FP32 outside them; HBM3 bandwidth.
@@ -106,7 +151,7 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 LAM_START, KMAX = 12, 8                   # λ_max = 12·2⁸ = 3072
 GENS = 64                                 # phase 3's generations
-BUDGET = 100_000                          # phase 4's evaluations
+BUDGET = 50_000                           # phase 4's evaluations
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
@@ -134,6 +179,10 @@ SOURCES = {
                    "src/repro/kernels/cma_sample.py:46"),
     "cma_rank_mu_update": ("src/repro_torch/kernels/csrc/cma_update.cu",
                            "src/repro/kernels/cma_update.py:53"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:93"),
+    "wkv6_forward": ("src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                     "src/repro/kernels/rwkv6_wkv.py:76"),
 }
 #: the strategies paths: phase 6 (K-Distributed at full width), phase 6c
 #: (K-Replicated at n=1000) and the small runs of phase 6b
@@ -142,6 +191,32 @@ KREP = dict(n=1000, P=8, gens=8)
 SMALL = dict(n=8, lam_start=16, lam_slots=16)
 #: the (λ, n) at which phase 2 checks the rank-μ update kernel
 RANK_MU_SHAPES = [(12, 1000), (3072, 1000), (192, 40)]
+#: the LM kernels (rows 9-10): peaks per input dtype (dense BF16 on the
+#: tensor cores, FP32 outside them), tolerances of phase 2 (float32:
+#: relative to the largest |value|; bfloat16: element by element, with a
+#: floor of LM_ROW_FLOOR of the row's largest |value|, ``lm_compare``), the
+#: shapes phase 2 checks them at, and the serving and neural-fitness paths
+#: of phases 7, 7b, 7c and 8
+LM_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+LM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+LM_ROW_FLOOR = 1e-3
+FLASH_CHECKS = [dict(B=4, S=2048, H=14, Hk=2, D=64, window=0),
+                dict(B=1, S=256, H=4, Hk=2, D=64, window=32),
+                dict(B=1, S=256, H=4, Hk=2, D=64, window=100)]
+WKV_CHECK = dict(B=4, S=1024, H=40, D=64)
+SERVE = {"qwen2-0.5b": dict(B=4, S=2048, new=32, kernel="flash_attention"),
+         "rwkv6-3b": dict(B=4, S=1024, new=32, kernel="wkv6_forward")}
+CARD_VS_CPU = dict(layers=2, B=2, S=50, steps=8, tol=1e-4)
+#: a decode step's logits against a full forward's, relative to the largest
+#: |logit|, at full depth, per arch: float32 is the tight check; in bfloat16
+#: the two paths (flash or chunked-WKV prefill, SDPA or recurrent decode)
+#: round differently in every layer, which over rwkv6-3b's 32 layers
+#: measured 2.9e-2 on the card (qwen2-0.5b: 6.1e-3)
+DECODE_TOL = {"qwen2-0.5b": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
+              "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4}}
+NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
+          max_evals=480)
+
 #: operations per Z element of the counter stream, for the bound: about 100
 #: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
 #: multiplies, each counted as one
@@ -299,9 +374,10 @@ def rank_mu_inputs(lam, n, dtype, dev, seed=2):
 # comparisons and timing
 # ---------------------------------------------------------------------------
 
-def compare(name, got, want, dtype):
-    """Max abs and max relative (to the largest |want|) error; NaNs must
-    sit in the same places."""
+def compare(name, got, want, dtype, tol=None):
+    """Max abs and max relative (to the largest |want|) error, at most
+    ``tol`` (default ``TOL[dtype]``); NaNs must sit in the same places."""
+    tol = TOL[dtype] if tol is None else tol
     worst_abs, worst_rel = 0.0, 0.0
     for g, w in zip(got, want):
         if not torch.equal(torch.isnan(g), torch.isnan(w)):
@@ -311,10 +387,33 @@ def compare(name, got, want, dtype):
         scale = float(w[ok].abs().max()) if ok.any() else 1.0
         worst_abs = max(worst_abs, diff)
         worst_rel = max(worst_rel, diff / max(scale, 1e-300))
-    if worst_rel > TOL[dtype]:
+    if not worst_rel <= tol:
         raise AssertionError(f"{name} ({dtype}): max relative error "
-                             f"{worst_rel:.3e} > {TOL[dtype]:.0e}")
+                             f"{worst_rel:.3e} > {tol:.0e}")
     return worst_abs, worst_rel
+
+
+def lm_compare(name, got, want, dtype):
+    """Rows 9-10 against their plain versions: (max abs error, max error
+    over the largest |want|, worst element ratio).  float32: within
+    ``LM_TOL`` of the largest |want| (``compare``; no ratio).  bfloat16:
+    every element within ``LM_TOL·|want| + LM_ROW_FLOOR · (largest |want|
+    of its row)``, rows being the last axis; the ratio is the largest
+    |got − want| over that limit, at most 1."""
+    got, want = [g.float() for g in got], [w.float() for w in want]
+    if dtype == torch.float32:
+        return (*compare(name, got, want, dtype, LM_TOL[dtype]), None)
+    worst = 0.0
+    for g, w in zip(got, want):
+        lim = (LM_TOL[dtype] * w.abs()
+               + LM_ROW_FLOOR * w.abs().amax(dim=-1, keepdim=True))
+        worst = max(worst, float(((g - w).abs() / lim.clamp_min(1e-30))
+                                 .max()))
+    if not worst <= 1.0:
+        raise AssertionError(f"{name} ({dtype}): an element misses "
+                             f"{LM_TOL[dtype]:.0e}·|want| + {LM_ROW_FLOOR:.0e}"
+                             f"·row max by a factor {worst:.3e}")
+    return (*compare(name, got, want, dtype, float("inf")), worst)
 
 
 def same_bits(name, got, want):
@@ -424,6 +523,7 @@ def phase_kernels(dev):
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1]})
     rows += strategy_kernel_checks(dev, errs)
+    rows += lm_kernel_checks(dev, errs)
     emit({"phase": "kernels_vs_plain", "checks": rows,
           "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
@@ -1095,6 +1195,415 @@ def strategy_kernel_rows(dev, errs, launches):
              "paths": paths[name]} for name in tops]
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate: rows 9-10 and phases 7, 7b, 7c and 8
+# ---------------------------------------------------------------------------
+
+def flash_inputs(B, S, H, Hk, D, dtype, dev, seed=0):
+    """q (B, S, H, D), k and v (B, S, Hk, D), standard normal."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=dev).to(dtype)
+            for shape in ((B, S, H, D), (B, S, Hk, D), (B, S, Hk, D))]
+
+
+def wkv_inputs(B, S, H, D, dtype, dev, seed=0):
+    """The WKV kernel's operands: r, k, v in ``dtype``; logw clamped to
+    [−5, −1e−6], u and a non-zero initial state in f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(a, dtype=torch.float32, device=dev).to(dt)
+    shape = (B, S, H, D)
+    return dict(r=t(rng.standard_normal(shape), dtype),
+                k=t(rng.standard_normal(shape), dtype),
+                v=t(rng.standard_normal(shape), dtype),
+                logw=t(np.clip(-np.exp(rng.standard_normal(shape)), -5.0,
+                               -1e-6)),
+                u=t(0.1 * rng.standard_normal((H, D))),
+                state=t(0.5 * rng.standard_normal((B, H, D, D))))
+
+
+def lm_kernel_checks(dev, errs):
+    """Rows 9 and 10 against their plain versions (module docstring, phase
+    2); records the float32 max abs errors in ``errs``."""
+    rows = []
+
+    def record(name, e, dtype, shape, **kw):
+        if dtype == torch.float32:
+            errs[name] = max(errs[name], e[0])
+        rows.append({"kernel": name, "shape": shape, "dtype": str(dtype),
+                     "max_abs_err": e[0], "max_rel_err": e[1],
+                     "max_elem_ratio": e[2], **kw})
+
+    # the serving shape, mid-tile windows, and a ragged S with every
+    # template width and a non-causal call
+    flash = [dict(c, causal=True) for c in FLASH_CHECKS] + [
+        dict(B=2, S=129, H=4, Hk=4, D=32, window=0, causal=True),
+        dict(B=1, S=384, H=8, Hk=1, D=128, window=0, causal=True),
+        dict(B=1, S=256, H=4, Hk=2, D=64, window=0, causal=False)]
+    for c in flash:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = [c[k] for k in ("B", "S", "H", "Hk", "D")]
+            q, k, v = flash_inputs(*shape, dtype, dev, seed=c["S"])
+            kw = dict(causal=c["causal"], window=c["window"])
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            e = lm_compare("flash_attention", (got,), (want,), dtype)
+            record("flash_attention", e, dtype, shape, **kw)
+    wkv = [WKV_CHECK, dict(B=1, S=32, H=2, D=32), dict(B=1, S=128, H=1, D=128)]
+    for c in wkv:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = [c[k] for k in ("B", "S", "H", "D")]
+            a = wkv_inputs(*shape, dtype, dev, seed=c["S"])
+            args = [a[k] for k in ("r", "k", "v", "logw", "u")]
+            o, st = rwkv6_wkv.wkv6_forward(*args, a["state"])
+            o_ref, st_ref = ref.wkv_chunked(*args, a["state"])
+            e_o = lm_compare("wkv6_forward o", (o,), (o_ref,), dtype)
+            e_s = lm_compare("wkv6_forward state", (st,), (st_ref,), dtype)
+            o0, st0 = rwkv6_wkv.wkv6_forward(*args)
+            o0_ref, st0_ref = ref.wkv_chunked(*args, torch.zeros_like(st))
+            e_0 = lm_compare("wkv6_forward zero state", (o0, st0),
+                             (o0_ref, st0_ref), dtype)
+            es = (e_o, e_s, e_0)            # the ratio is None in float32
+            record("wkv6_forward", tuple(
+                None if e_o[i] is None else max(e[i] for e in es)
+                for i in range(3)), dtype, shape, state_max_rel_err=e_s[1])
+    torch.cuda.synchronize()
+    return rows
+
+
+def _device_us(evt) -> float:
+    """An event's own device time in µs (the attribute's name varies across
+    torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    raise AttributeError("no device time on profiler events")
+
+
+def profiled(fn, top=8):
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA): its host
+    time (slowed by the profiler), the device's busy time (the sum of every
+    kernel's own device time; one stream, so no overlap), the busy share,
+    the aten calls made (nested ones counted) and the ``top`` kernels and
+    operators by own device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in evts
+                  if getattr(e, "device_type", None) is not None
+                  and "CUDA" in str(e.device_type)) / 1e3
+    rows = sorted(evts, key=_device_us, reverse=True)[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "aten_calls": sum(e.count for e in prof.key_averages()
+                              if str(getattr(e, "device_type", "")).endswith(
+                                  "CPU") and e.key.startswith("aten::")),
+            "top": [{"name": e.key[:80], "count": e.count,
+                     "device_ms": _device_us(e) / 1e3} for e in rows]}
+
+
+def phase_serve(dev, arch):
+    """``Engine.generate`` at full width (module docstring, phases 7, 7b):
+    prefill, decode, launches, memory, and the first decode step's logits
+    against a full forward over the prompt and the first new token."""
+    sv = SERVE[arch]
+    B, S, new, kernel = sv["B"], sv["S"], sv["new"], sv["kernel"]
+    cfg = launcher.serve_config(arch)
+    _build.reset_launches()
+    launcher.main(["--arch", arch])
+    torch.cuda.synchronize()
+    via_cli = dict(_build.LAUNCHES)
+    torch.cuda.empty_cache()
+    if via_cli[kernel] != cfg.n_layers or any(
+            v for k, v in via_cli.items() if k != kernel):
+        raise AssertionError(f"{arch} launcher launches {via_cli}, expected "
+                             f"{cfg.n_layers} of {kernel} and no other")
+    eng = Engine(cfg, lm.init_params(cfg, 0, dev), max_len=S + new,
+                 device=dev)
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, size=S,
+                                        dtype=np.int32), max_new_tokens=new)
+            for _ in range(B)]
+    # warm-up at the same shapes (cuBLAS picks its kernels on first use)
+    eng.generate([Request(prompt=r.prompt, max_new_tokens=2) for r in reqs])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, logits = eng.generate(reqs, return_logits=True)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    others = {k: v for k, v in launches.items() if k != kernel}
+    if launches[kernel] != cfg.n_layers or any(others.values()):
+        raise AssertionError(f"{arch} serve launches {launches}, expected "
+                             f"{cfg.n_layers} of {kernel} and no other")
+    out = np.stack([r.out for r in reqs])
+    if (out.shape != (B, new) or not np.isfinite(logits).all()
+            or not ((out >= 0) & (out < cfg.vocab)).all()
+            or not np.array_equal(out[:, 0], logits[0].argmax(-1))):
+        raise AssertionError(f"{arch} serve: tokens {out.shape} or logits "
+                             "not finite")
+    prompts = np.stack([r.prompt for r in reqs])
+    err = {"bfloat16": decode_vs_forward(cfg, eng.params, prompts,
+                                         out[:, 0], dev, logits[1]),
+           "float32": decode_vs_forward(
+               configs.override(cfg, dtype="float32"), eng.params, prompts,
+               out[:, 0], dev)}
+    for dt, e in err.items():
+        if not e <= DECODE_TOL[arch][layers.dtype_of(dt)]:
+            raise AssertionError(f"{arch} ({dt}): decode logits at position "
+                                 f"{S} vs forward: relative error {e:.3e}")
+    st = eng.stats
+    prof = serve_profiles(cfg, eng.params, prompts, dev)
+    emit({"phase": f"serve_{arch}", "batch": B, "prompt_len": S,
+          "new_tokens": new, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "params": sum(t.numel() for t in _leaves(eng.params)),
+          "prefill_ms": st["prefill_ms"],
+          "decode_ms_per_token": st["decode_ms"] / new,
+          "decode_tokens_per_s": B * new / (st["decode_ms"] / 1e3),
+          "wall_s": wall, "peak_allocated_gb": peak / 1e9,
+          "launches": launches, "launcher_launches": via_cli,
+          "decode_vs_forward_rel_err": err,
+          "profile": prof})
+    return launches
+
+
+def serve_profiles(cfg, params, prompts, dev, steps=8):
+    """One prefill and ``steps`` decode steps under the profiler."""
+    toks = torch.tensor(prompts, device=dev)
+    nxt = toks[:, -1:].contiguous()
+    max_len = prompts.shape[1] + steps
+    with torch.inference_mode():
+        pre = profiled(lambda: lm.prefill(cfg, params, {"tokens": toks},
+                                          max_len))
+        _, cache = lm.prefill(cfg, params, {"tokens": toks}, max_len)
+
+        def decode():
+            c = cache
+            for _ in range(steps):
+                c = lm.decode_step(cfg, params, c, {"tokens": nxt})[1]
+        dec = profiled(decode)
+    return {"prefill": pre, f"decode_{steps}_steps": dec}
+
+
+def decode_vs_forward(cfg, params, prompts, first, dev, got=None):
+    """The logits of the decode step that takes ``first`` (B,) after the
+    prefill of ``prompts`` (B, S) — ``got``, or computed here — against
+    ``lm.forward``'s last logits over the prompts and ``first``: max
+    |difference| over the largest |logit|."""
+    toks = torch.tensor(prompts, device=dev)
+    nxt = torch.tensor(first[:, None], device=dev)
+    with torch.inference_mode():
+        if got is None:
+            _, cache = lm.prefill(cfg, params, {"tokens": toks},
+                                  prompts.shape[1] + 1)
+            got = lm.decode_step(cfg, params, cache,
+                                 {"tokens": nxt})[0].cpu().numpy()
+        hidden, _ = lm.forward(cfg, params,
+                               {"tokens": torch.cat([toks, nxt], dim=1)})
+        want = lm.logits_last(cfg, params, hidden).cpu().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def phase_card_vs_cpu(dev):
+    """Both archs at full width and 2 layers in float32, the same weights on
+    the card and on the CPU (module docstring, phase 7c): prefill logits,
+    every cache leaf, and the logits of teacher-forced decode steps, each
+    relative to its largest |value| (logits: the largest |logit|)."""
+    c = CARD_VS_CPU
+    B, S, steps = c["B"], c["S"], c["steps"]
+    worst = {}
+    _build.reset_launches()
+    for arch in SERVE:
+        cfg = launcher.serve_config(arch, n_layers=c["layers"],
+                                      dtype="float32")
+        p_card = lm.init_params(cfg, 2, dev)
+        rng = np.random.default_rng(3)
+        toks = rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32)
+        forced = rng.integers(0, cfg.vocab, size=(B, steps), dtype=np.int32)
+        got = {}
+        for d, p in ((dev, p_card), ("cpu", lm.tree_to(p_card, "cpu"))):
+            with torch.inference_mode():
+                logits, cache = lm.prefill(
+                    cfg, p, {"tokens": torch.tensor(toks, device=d)},
+                    S + steps)
+            eng = Engine(cfg, p, max_len=S + steps, device=d)
+            _, lg = eng.generate([Request(prompt=t, max_new_tokens=steps)
+                                  for t in toks], forced=forced,
+                                 return_logits=True)
+            got[d] = (logits.cpu().numpy(),
+                      {k: v.float().cpu().numpy() for k, v in cache.items()},
+                      lg)
+        (l_a, c_a, g_a), (l_b, c_b, g_b) = got[dev], got["cpu"]
+        scale = float(np.abs(l_b).max())
+        errs = {"prefill_logits": float(np.abs(l_a - l_b).max()) / scale,
+                "decode_logits": float(np.abs(g_a - g_b).max()
+                                       / np.abs(g_b).max())}
+        for k in c_b:
+            errs[f"cache.{k}"] = float(np.abs(c_a[k] - c_b[k]).max()
+                                       / max(np.abs(c_b[k]).max(), 1e-30))
+        worst[arch] = errs
+    launches = dict(_build.LAUNCHES)
+    emit({"phase": "serve_card_vs_cpu", **c, "errs": worst,
+          "launches": launches})
+    bad = {a: {k: v for k, v in e.items() if not v <= c["tol"]}
+           for a, e in worst.items()}
+    if any(bad.values()):
+        raise AssertionError(f"card vs CPU errors above {c['tol']}: {bad}")
+    # two prefills per arch on the card: lm.prefill and Engine.generate's
+    if (launches["flash_attention"] != 2 * c["layers"]
+            or launches["wkv6_forward"] != 2 * c["layers"]):
+        raise AssertionError(f"card vs CPU launches {launches}")
+    return launches
+
+
+def phase_nn_fitness(dev):
+    """``run_ipop`` over ``make_nn_fitness`` on qwen2-0.5b at full width
+    (module docstring, phase 8)."""
+    cfg = launcher.serve_config(NN["arch"])
+    data = SyntheticTokens(cfg, seq_len=NN["S"], global_batch=NN["B"], seed=1)
+    fitness, space = make_nn_fitness(cfg, lm.init_params(cfg, 3, dev),
+                                     data.batch_at(999), device=dev)
+    evaluated = [0]
+
+    def counted(X):
+        evaluated[0] += X.shape[0]
+        return fitness(X)
+    base = float(fitness(torch.zeros((1, space.dim), dtype=torch.float64,
+                                     device=dev))[0])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = ipop.run_ipop(counted, space.dim, 21, lam_start=NN["lam_start"],
+                        kmax_exp=NN["kmax_exp"], max_evals=NN["max_evals"],
+                        backend="bucketed", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    steps = sum(sg["gens"] for sg in res.driver["segments"])
+    rows = evaluated[0]
+    useful = sum(len(d.gens) * d.lam for d in res.descents)
+    lam_last = res.descents[-1].lam
+    if launches["flash_attention"] != cfg.n_layers * rows:
+        raise AssertionError(f"nn fitness: {launches['flash_attention']} "
+                             f"flash launches for {rows} evaluated rows")
+    if (launches["cma_gen_sample"] != steps
+            or launches["cma_gen_update"] != steps):
+        raise AssertionError(f"nn fitness launches {launches} for {steps} "
+                             "generations")
+    if not (res.total_fevals == useful <= NN["max_evals"]
+            and NN["max_evals"] - res.total_fevals < lam_last
+            and np.isfinite(res.best_f) and np.isfinite(base)):
+        raise AssertionError(f"nn fitness: fevals {res.total_fevals}, "
+                             f"useful {useful}, best {res.best_f}")
+    emit({"phase": "nn_fitness_qwen2", "n": space.dim, **NN,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "ms_per_eval": wall / rows * 1e3,
+          "ms_per_useful_eval": wall / res.total_fevals * 1e3,
+          "wall_s": wall, "baseline_ce": base, "best_ce": res.best_f,
+          "fevals": res.total_fevals, "rows_evaluated": rows,
+          "steps": steps, "segments": len(res.driver["segments"]),
+          "descents": [[d.lam, len(d.gens), d.stop_reason]
+                       for d in res.descents], "launches": launches,
+          "profile_4_evals": profiled(lambda: fitness(
+              torch.zeros((4, space.dim), dtype=torch.float64,
+                          device=dev)))})
+    return launches
+
+
+def lm_bound(flops, nbytes, dtype):
+    t_ops = flops / LM_PEAK_FLOPS[dtype] * 1e3
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def _sdpa(q, k, v):
+    """One PyTorch call of the same attention on (B, H, S, D) tensors made
+    contiguous beforehand: the yardstick, used nowhere in the port."""
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
+def lm_kernel_rows(dev, errs, launches):
+    """Rows 9 and 10 of the ``kernels`` line: per path its launches and, at
+    that path's shape and dtype, the kernel's, the plain version's and (row
+    9) SDPA's times and the bound."""
+    def flash_work(B, S, H, Hk, D, dtype):
+        q, k, v = flash_inputs(B, S, H, Hk, D, dtype, dev)
+        pairs = S * (S + 1) // 2                   # unmasked (q, k), causal
+        b_ms, b_by = lm_bound(4.0 * B * H * pairs * D,
+                              q.element_size() * 2 * B * S * D * (H + Hk),
+                              dtype)
+        return {"shape": [B, S, H, Hk, D], "dtype": str(dtype),
+                "ms": time_ms(lambda: flash_attention.flash_attention(
+                    q, k, v)),
+                "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(_sdpa(q, k, v))}
+
+    def wkv_work(B, S, H, D, dtype):
+        a = wkv_inputs(B, S, H, D, dtype, dev)
+        args = [a[k] for k in ("r", "k", "v", "logw", "u", "state")]
+        n = B * S * H * D
+        nbytes = (a["r"].element_size() * 4 * n + 4 * n + 4 * H * D
+                  + 2 * 4 * B * H * D * D)
+        b_ms, b_by = lm_bound(B * H * S * (2.0 * 16 * D + 4.0 * D * D),
+                              nbytes, dtype)
+        return {"shape": [B, S, H, D], "dtype": str(dtype),
+                "ms": time_ms(lambda: rwkv6_wkv.wkv6_forward(*args)),
+                "plain_ms": time_ms(lambda: ref.wkv_chunked(*args), reps=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    q2 = configs.get_config("qwen2-0.5b")
+    rw = configs.get_config("rwkv6-3b")
+    qh = (q2.n_heads, q2.n_kv_heads, q2.head_dim)
+    rh = (rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim)
+    c = CARD_VS_CPU
+    s_pad = -(-c["S"] // ref.WKV_CHUNK) * ref.WKV_CHUNK
+    bf16, f32 = torch.bfloat16, torch.float32
+    work = {
+        "flash_attention": {
+            "serve_qwen2": flash_work(SERVE["qwen2-0.5b"]["B"],
+                                      SERVE["qwen2-0.5b"]["S"], *qh, bf16),
+            "nn_fitness_qwen2": flash_work(NN["B"], NN["S"], *qh, bf16),
+            "serve_card_vs_cpu": flash_work(c["B"], c["S"], *qh, f32)},
+        "wkv6_forward": {
+            "serve_rwkv6": wkv_work(SERVE["rwkv6-3b"]["B"],
+                                    SERVE["rwkv6-3b"]["S"], *rh, bf16),
+            "serve_card_vs_cpu": wkv_work(c["B"], s_pad, *rh, f32)}}
+    rows = []
+    for name, paths in work.items():
+        for p, w in paths.items():
+            w["launches"] = launches[p][name]
+        top = paths["serve_qwen2" if name == "flash_attention"
+                    else "serve_rwkv6"]
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                     "launches": sum(launches[p][name] for p in launches),
+                     "max_abs_err": errs[name],
+                     **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+                     "paths": paths})
+    return rows
+
+
 def kernel_work(shape, fid, dev):
     """Per kernel, float64 at ``shape``: (kernel call, plain call, one
     PyTorch call of the same product, operations, bytes)."""
@@ -1174,6 +1683,7 @@ def phase_table(dev, errs, launches):
                                    "library_ms")},
             "paths": paths})
     rows += strategy_kernel_rows(dev, errs, launches)
+    rows += lm_kernel_rows(dev, errs, launches)
     emit({"kernels": rows})
 
 
@@ -1207,6 +1717,16 @@ def main() -> int:
         "6b_small_strategies", phase_small_strategies, dev)
     launches["strategies_krep_n1000"] = timed("6c_krep", phase_krep_n1000,
                                               dev)
+    launches["serve_qwen2"] = timed("7_serve_qwen2", phase_serve, dev,
+                                    "qwen2-0.5b")
+    torch.cuda.empty_cache()
+    launches["serve_rwkv6"] = timed("7b_serve_rwkv6", phase_serve, dev,
+                                    "rwkv6-3b")
+    torch.cuda.empty_cache()
+    launches["serve_card_vs_cpu"] = timed("7c_card_vs_cpu", phase_card_vs_cpu,
+                                          dev)
+    launches["nn_fitness_qwen2"] = timed("8_nn_fitness", phase_nn_fitness,
+                                         dev)
     timed("5_table", phase_table, dev, errs, launches)
     emit({"phase_seconds": seconds})
     print(gpu_line(), flush=True)

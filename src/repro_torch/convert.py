@@ -5,7 +5,9 @@ The JAX package's NamedTuples (``CMAState``, ``LadderCarry``, ``CMAParams``,
 every leaf passed as a numpy array (``np.asarray``
 of each leaf), become the port's tensors on a given device; ``to_numpy``
 goes back.  Fields are matched by name.  uint32 arrays (PRNG keys) become
-the port's int64-held words.  Nothing here imports the JAX package.
+the port's int64-held words.  The LM's parameter and cache trees (nested
+dicts) go across with ``lm_params`` and ``lm_cache``.  Nothing here imports
+the JAX package.
 """
 from __future__ import annotations
 
@@ -20,10 +22,14 @@ from repro_torch.fitness.bbob import BBOBInstance
 
 
 def tensor(a, device) -> torch.Tensor:
-    """One numpy leaf as a tensor (uint32 widened to int64)."""
+    """One numpy leaf as a tensor (uint32 widened to int64; bfloat16, which
+    numpy holds as ``ml_dtypes.bfloat16``, kept bfloat16)."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":
+        bits = np.array(a, copy=True).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -63,6 +69,27 @@ def krep_carry(carry, device) -> KRepCarry:
     fields = {f: tensor(getattr(carry, f), device)
               for f in KRepCarry._fields if f != "state"}
     return KRepCarry(state=cma_state(carry.state, device), **fields)
+
+
+def _tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    return tensor(tree, device)
+
+
+def lm_params(cfg, tree, device="cpu") -> dict:
+    """The JAX package's ``lm.init_params`` tree (numpy leaves) as the
+    port's: the same nested keys, every leaf a tensor of the same shape and
+    dtype.  The tree must be of a family the port runs (``cfg``)."""
+    from repro_torch.models import lm
+    lm.check_supported(cfg)
+    return _tree(tree, device)
+
+
+def lm_cache(tree, device="cpu") -> dict:
+    """A prefill cache of the JAX package (``lm.init_cache``/``prefill``,
+    numpy leaves) as the port's cache dict."""
+    return _tree(tree, device)
 
 
 def to_numpy(tree):

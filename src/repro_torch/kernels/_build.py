@@ -8,8 +8,8 @@ of every source and of the compiler flags, so an edited source is rebuilt
 and an unchanged one is reused.  All missing libraries are compiled at
 once, one ``nvcc`` process per source.  Nothing here runs at import.
 
-The wrappers (``cma_gen.py``, ``cma_sample.py``, ``cma_update.py``) share
-the rest: ``function`` binds an entry point, ``check`` refuses a tensor the
+The wrappers (``cma_gen.py``, ``cma_sample.py``, ``cma_update.py``,
+``flash_attention.py``, ``rwkv6_wkv.py``) share the rest: ``function`` binds an entry point, ``check`` refuses a tensor the
 kernel does not take, and ``launch`` calls it on the current stream,
 raises on a launch error and counts the launch in ``LAUNCHES``.
 """
@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("cma_gen_sample", "cma_gen_update", "cma_sample", "cma_update")
+SOURCES = ("cma_gen_sample", "cma_gen_update", "cma_sample", "cma_update",
+           "flash_attention", "rwkv6_wkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,8 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"cma_gen_sample": 0, "cma_gen_sample_eval": 0,
             "cma_gen_update": 0, "cma_gen_sample_rng": 0,
             "cma_gen_sample_rng_eval": 0, "cma_sample_z_rng": 0,
-            "cma_sample": 0, "cma_rank_mu_update": 0}
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+            "cma_sample": 0, "cma_rank_mu_update": 0,
+            "flash_attention": 0, "wkv6_forward": 0}
+#: entry-point suffix per dtype, and the dtypes the CMA-ES kernels and the
+#: LM kernels are built for
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+CMA_DTYPES = (torch.float32, torch.float64)
+LM_DTYPES = (torch.float32, torch.bfloat16)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None
@@ -109,7 +115,7 @@ def reset_launches() -> None:
 
 
 def function(lib_name: str, fn_name: str, dtype: torch.dtype, argtypes):
-    """Entry point ``<fn_name>_<f32|f64>`` of library ``lib_name``."""
+    """Entry point ``<fn_name>_<SUFFIX[dtype]>`` of library ``lib_name``."""
     fn = getattr(library(lib_name), f"{fn_name}_{SUFFIX[dtype]}")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import SUFFIX as _SUFFIX
+from repro_torch.kernels._build import CMA_DTYPES as _DTYPES
 from repro_torch.kernels._build import check as _check
 from repro_torch.kernels._build import launch as _launch
 from repro_torch.kernels.ref import RNG_MAX_DIM
@@ -63,7 +63,7 @@ def _sample_operands(m, sigma, B, D, Z):
     if not Z.is_cuda:
         raise ValueError("Z: the CUDA kernel takes CUDA tensors, got one on "
                          f"{Z.device}")
-    if Z.dim() != 3 or Z.dtype not in _SUFFIX:
+    if Z.dim() != 3 or Z.dtype not in _DTYPES:
         raise ValueError("Z must be (S, lam, n) float32 or float64")
     S, lam, n = Z.shape
     dt, dev = Z.dtype, Z.device
@@ -91,7 +91,7 @@ def _seed_words(seeds: torch.Tensor, lam: int, n: int) -> torch.Tensor:
 
 
 def _rng_operands(m, sigma, B, D, seeds, lam: int):
-    if B.dim() != 3 or B.dtype not in _SUFFIX:
+    if B.dim() != 3 or B.dtype not in _DTYPES:
         raise ValueError("B must be (S, n, n) float32 or float64")
     S, n, _ = B.shape
     lam = int(lam)
@@ -176,7 +176,7 @@ def sample_z_rng(seeds, lam: int, n: int, dtype=torch.float64):
     """The counter stream Z (S, λ, n) of ``seeds`` (S, 2) in ``dtype``."""
     lam, n = int(lam), int(n)
     words = _seed_words(seeds, lam, n)
-    if dtype not in _SUFFIX:
+    if dtype not in _DTYPES:
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
     S = words.shape[0]
     Z = torch.empty((S, lam, n), dtype=dtype, device=words.device)
@@ -192,7 +192,7 @@ def gen_update(C, B, D, p_sigma, p_c, Y, w, coef):
     if not C.is_cuda:
         raise ValueError("C: the CUDA kernel takes CUDA tensors, got one on "
                          f"{C.device}")
-    if C.dim() != 3 or C.dtype not in _SUFFIX:
+    if C.dim() != 3 or C.dtype not in _DTYPES:
         raise ValueError("C must be (S, n, n) float32 or float64")
     S, n, _ = C.shape
     lam = Y.shape[1] if Y.dim() == 3 else -1

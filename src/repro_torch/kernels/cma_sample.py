@@ -54,7 +54,7 @@ def sample_groups(B, D, Z, starts, m=None, sigma=None):
     if not Z.is_cuda:
         raise ValueError("Z: the CUDA kernel takes CUDA tensors, got one on "
                          f"{Z.device}")
-    if Z.dim() != 2 or Z.dtype not in _build.SUFFIX or B.dim() != 3:
+    if Z.dim() != 2 or Z.dtype not in _build.CMA_DTYPES or B.dim() != 3:
         raise ValueError("Z must be (R, n) and B (G, n, n), float32 or "
                          "float64")
     if (m is None) != (sigma is None):

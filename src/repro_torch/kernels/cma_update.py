@@ -30,7 +30,7 @@ def rank_mu_update(C, Y, w, p_c, coef):
     if not C.is_cuda:
         raise ValueError("C: the CUDA kernel takes CUDA tensors, got one on "
                          f"{C.device}")
-    if C.dim() != 3 or C.dtype not in _build.SUFFIX or Y.dim() != 3:
+    if C.dim() != 3 or C.dtype not in _build.CMA_DTYPES or Y.dim() != 3:
         raise ValueError("C must be (S, n, n) and Y (S, lam, n), float32 or "
                          "float64")
     S, n, _ = C.shape

@@ -2,9 +2,10 @@
 
 Under a kernel tier (``"auto"``, ``"kernel_rng"``) a CPU tensor takes the
 plain version (``kernels/ref.py``) and a CUDA tensor the hand-written
-kernel (``kernels/cma_gen.py``, ``cma_sample.py``, ``cma_update.py``),
-which raises on anything it does not take — there is no fallback from a
-CUDA tensor to the plain version.  The CUDA kernels tile, so no size limit
+kernel (``kernels/cma_gen.py``, ``cma_sample.py``, ``cma_update.py``,
+``flash_attention.py``, ``rwkv6_wkv.py``), which raises on anything it
+does not take — there is no fallback from a CUDA tensor to the plain
+version.  The CUDA kernels tile, so no size limit
 routes a problem elsewhere (the JAX package's VMEM-fit fallback has no
 counterpart).
 
@@ -36,7 +37,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.eval_dispatch import FusableEval
-from repro_torch.kernels import cma_gen, cma_sample, cma_update, ref
+from repro_torch.kernels import (cma_gen, cma_sample, cma_update,
+                                  flash_attention as flash_mod, ref,
+                                  rwkv6_wkv)
 
 IMPL_CHOICES = ("auto", "kernel_rng", "eager", "eager_unfused")
 #: the tiers that launch the kernels on a CUDA tensor
@@ -205,3 +208,38 @@ def covariance_combine(C, gram, p_c, decay, c_mu, c_1, impl: str = "auto"):
     tier (``rank_mu_update`` is the fused form)."""
     validate_impl(impl)
     return ref.covariance_combine(C, gram, p_c, decay, c_mu, c_1)
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate's ops (kernels/flash_attention.py, kernels/rwkv6_wkv.py)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto"):
+    """GQA flash attention: q (B, S, H, D), k/v (B, S_kv, H_k, D).  Under a
+    kernel tier the JAX kernel's contract holds on every device:
+    non-causal attention with S_kv not a multiple of min(128, S_kv) raises
+    ``NotImplementedError``.  ``"eager"`` takes the plain version (the JAX
+    package's ``"xla"``), which serves that case."""
+    if validate_impl(impl) in KERNEL_TIERS:
+        flash_mod.check_contract(causal, k.shape[1])
+    if _kernel(impl, q):
+        return flash_mod.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def wkv_chunked(r, k, v, logw, u, state, impl: str = "auto"):
+    """Chunked RWKV-6 WKV from ``state`` (B, H, D, D) f32: (o, new state);
+    ``repro/models/rwkv6.py::wkv_chunked``'s contract."""
+    if _kernel(impl, r):
+        return rwkv6_wkv.wkv6_forward(r, k, v, logw, u, state)
+    return ref.wkv_chunked(r, k, v, logw, u, state)
+
+
+def wkv6(r, k, v, logw, u, impl: str = "auto"):
+    """Chunked RWKV-6 WKV from a zero state, output only (the JAX package's
+    ``ops.wkv6``)."""
+    if _kernel(impl, r):
+        return rwkv6_wkv.wkv6_forward(r, k, v, logw, u)[0]
+    return ref.wkv6(r, k, v, logw, u)

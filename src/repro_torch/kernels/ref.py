@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-Port of ``repro/kernels/ref.py:15-262``.  These are the oracles the CUDA
-kernels of ``kernels/cma_gen.py``, ``cma_sample.py`` and ``cma_update.py``
-are held against (tests, ``chip_smoke.py``) and the path ``kernels/ops.py``
+Port of ``repro/kernels/ref.py``.  These are the oracles the CUDA
+kernels of ``kernels/cma_gen.py``, ``cma_sample.py``, ``cma_update.py``,
+``flash_attention.py`` and ``rwkv6_wkv.py`` are held against (tests, ``chip_smoke.py``) and the path ``kernels/ops.py``
 takes for tensors on the CPU and under the ``eager`` tiers.  The fused
 generation ops are slot-batched: every argument carries a leading slot axis
 S, per-slot scalars are (S,) tensors.  The ops of the strategies path
@@ -195,3 +195,78 @@ def fused_gen_update(C, B, D, p_sigma, p_c, Y, w, c_sigma, mu_eff, c_c, c_1,
     y_w = (YsT @ rw[..., None])[..., 0]
     return fused_update_from_gram(C, B, D, p_sigma, p_c, gram, y_w, c_sigma,
                                   mu_eff, c_c, c_1, c_mu, chi_n, gen1)
+
+
+# ---------------------------------------------------------------------------
+# LM kernels
+# ---------------------------------------------------------------------------
+
+#: RWKV-6 WKV chunk length: every exponential of a chunk stays below
+#: e^{16·5} < float32's max (``models/rwkv6.py``)
+WKV_CHUNK = 16
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Materialised-softmax GQA attention (``repro/kernels/ref.py:269``):
+    q (B, S, H, D), k/v (B, S_kv, H_k, D) → (B, S, H, D) in q's dtype.
+    Masks are in index order: causal keeps keys ≤ the query's index, a
+    window keeps keys > index − window.  f32 logits and probabilities."""
+    B, S, H, D = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    rep = H // Hk
+    qg = q.reshape(B, S, Hk, rep, D).float() * (D ** -0.5)
+    logits = torch.einsum("bshrd,bthd->bhrst", qg, k.float())
+    q_ids = torch.arange(S, device=q.device)[:, None]
+    k_ids = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window > 0:
+        mask &= k_ids > q_ids - window
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhrst,bthd->bshrd", p, v.float())
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def wkv_chunked(r, k, v, logw, u, state):
+    """Chunked-parallel RWKV-6 WKV (``repro/models/rwkv6.py:121``):
+    r, k, v (B, S, H, D), logw (B, S, H, D) f32 (≤ −1e−6), u (H, D),
+    state (B, H, D, D) f32; S a multiple of ``WKV_CHUNK``.  Returns
+    (o (B, S, H, D) in r's dtype, final state)."""
+    B, S, H, D = r.shape
+    if S % WKV_CHUNK:
+        raise ValueError(f"S = {S} must be a multiple of {WKV_CHUNK} "
+                         "(the caller pads)")
+    c = WKV_CHUNK
+    u32 = u.float()
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)
+    outs = []
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        rr, kk, vv = (a[:, sl].float() for a in (r, k, v))
+        ww = logw[:, sl].float()
+        Lc = torch.cumsum(ww, dim=1)                       # Σ_{s≤t}
+        Lc_prev = Lc - ww                                  # Σ_{s<t}
+        Lc_last = Lc[:, -1:]
+        q_t = rr * torch.exp(Lc_prev)
+        k_in = kk * torch.exp(-Lc)
+        A = torch.einsum("bthd,bjhd->bhtj", q_t, k_in)
+        A = torch.where(tri, A, 0.0)
+        o = torch.einsum("bhtj,bjhd->bthd", A, vv)
+        diag = torch.einsum("bthd,hd,bthd->bth", rr, u32, kk)
+        o = o + diag[..., None] * vv
+        o = o + torch.einsum("bthd,bhdv->bthv", q_t, state)
+        k_out = kk * torch.exp(Lc_last - Lc)
+        state = (torch.exp(Lc_last)[:, 0, :, :, None] * state
+                 + torch.einsum("bjhd,bjhv->bhdv", k_out, vv))
+        outs.append(o.to(r.dtype))
+    return torch.cat(outs, dim=1), state
+
+
+def wkv6(r, k, v, logw, u):
+    """``wkv_chunked`` from a zero state, output only (``ops.wkv6``)."""
+    B, _, H, D = r.shape
+    state0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+    return wkv_chunked(r, k, v, logw, u, state0)[0]

@@ -28,8 +28,17 @@ assert callable(chip_smoke.main)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith(("repro.", "jax"))))
 assert not bad, bad
-print("OK", len(names))
+print("OK", len(names), " ".join(names))
 """
+#: modules of the LM slice the walk must reach
+LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
+              "repro_torch.configs.rwkv6_3b", "repro_torch.models.layers",
+              "repro_torch.models.mlp", "repro_torch.models.attention",
+              "repro_torch.models.rwkv6", "repro_torch.models.lm",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.rwkv6_wkv", "repro_torch.serve.engine",
+              "repro_torch.launch.serve", "repro_torch.data.pipeline",
+              "repro_torch.fitness.nn_fitness"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -38,7 +47,9 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
-    assert int(out.stdout.split()[1]) >= 14     # every module was imported
+    words = out.stdout.split()
+    assert int(words[1]) >= 28                  # every module was imported
+    assert LM_MODULES <= set(words[2:]), LM_MODULES - set(words[2:])
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch):
