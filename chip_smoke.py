@@ -9,14 +9,19 @@ Phases, one JSON line each with its seconds; any failed check raises
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
+   ``cuobjdump -sass`` must find FP64 tensor-core instructions (DMMA) in
+   the update kernel (row 6) and wgmma (HGMMA) in flash attention (row 9);
 2. each kernel against its plain version on the card, at the shapes of
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
    f1 instance's coefficients), a ragged one (S=3, λ=37, n=45, one
    all-zero-weight slot) and every shape a bucketed path launches (S=1,
    λ=12, n=1000 of phase 3b; S=1, λ=12·2ᵏ, n=40 for k = 0…7 of phase 4b,
    with the f1 coefficients), float64 (max relative error ≤ 1e-12) and
-   float32 (≤ 1e-4); C′ must be exactly symmetric.  The in-kernel RNG
-   kernels are fed seed words at and above 2³¹, and must be prefix-stable
+   float32 (≤ 1e-4); C′ must be exactly symmetric, and a second launch of
+   the update kernel on the same inputs bit-identical (its chunks'
+   partial sums are added in a fixed order), each launch on memory that
+   was just filled with NaN.  The in-kernel RNG kernels are fed seed
+   words at and above 2³¹, and must be prefix-stable
    kernel against kernel, bit for bit, at n=1000 and n=40: the first 12
    and 192 rows of a λ=3072 call are a λ=12 and a λ=192 call (Z, Y, X
    and F).  The grouped sample kernel (row 7, ``cma_sample``) at every
@@ -35,7 +40,8 @@ Phases, one JSON line each with its seconds; any failed check raises
    non-zero initial state, final state compared too, and at D=32 and 128;
    both in float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element
    by element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value|
-   of the element's row, its last axis);
+   of the element's row, its last axis; the phase's line gives each
+   kernel's worst bf16 element as a share of its limit);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -120,6 +126,8 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -216,6 +224,11 @@ DECODE_TOL = {"qwen2-0.5b": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
               "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4}}
 NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
           max_evals=480)
+
+#: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
+#: tensor cores) for row 6's float64 gram, HGMMA (wgmma) for row 9's bf16
+#: products
+TENSOR_SASS = {"cma_gen_update": "DMMA", "flash_attention": "HGMMA"}
 
 #: operations per Z element of the counter stream, for the bound: about 100
 #: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
@@ -422,6 +435,23 @@ def same_bits(name, got, want):
             raise AssertionError(f"{name}: not bit-identical")
 
 
+def poisoned_update(u):
+    """``cma_gen.gen_update(**u)`` just after blocks of the sizes it
+    allocates (C′, the three vectors, the scratch), in its order, were
+    filled with NaN and freed: the caching allocator most likely hands
+    them back to it, so an output or scratch element that the kernels read
+    or return without writing it shows as a NaN or a changed bit, not as
+    an earlier launch's leftovers."""
+    C, Y = u["C"], u["Y"]
+    S, lam, n = Y.shape
+    sizes = (C.numel(), 3 * S * n,
+             sum(cma_gen.update_plan(S, lam, n).scratch().values()))
+    poison = [torch.full((k,), float("nan"), dtype=C.dtype, device=C.device)
+              for k in sizes]
+    del poison
+    return cma_gen.gen_update(**u)
+
+
 def same_result(name, got, want):
     """Two IPOPResults, bit for bit: every descent's record, the best value
     and point, the evaluations and the driver's bucket sequence."""
@@ -473,7 +503,24 @@ def phase_build(dev):
                       if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "gpu": gpu_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
-          "build_s": _build.build_seconds, "ptxas": ptxas})
+          "build_s": _build.build_seconds, "ptxas": ptxas,
+          "tensor_sass": tensor_sass(libs)})
+
+
+def tensor_sass(libs):
+    """Per source of ``TENSOR_SASS``, how many of its tensor-core
+    instructions ``cuobjdump -sass`` finds in the built library; none
+    fails."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    found = {}
+    for name, op in TENSOR_SASS.items():
+        sass = subprocess.run([tool, "-sass", str(libs[name])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        found[name] = {op: len(re.findall(rf"\b{op}\b", sass))}
+        if not found[name][op]:
+            raise AssertionError(f"{name}: no {op} instruction in its SASS")
+    return found
 
 
 def phase_kernels(dev):
@@ -497,12 +544,16 @@ def phase_kernels(dev):
             errs_here["cma_gen_sample_eval"] = compare(
                 "cma_gen_sample_eval", got, want, dtype)
             u = update_inputs(S, lam, n, dtype, dev)
-            got = cma_gen.gen_update(**u)
+            got = poisoned_update(u)
             want = ref_update(u)
             errs_here["cma_gen_update"] = compare("cma_gen_update", got,
                                                   want, dtype)
             if not torch.equal(got[0], got[0].transpose(-1, -2)):
                 raise AssertionError("cma_gen_update: C' is not symmetric")
+            # the chunks' partials are summed in a fixed order: a second
+            # launch on the same inputs gives the same bits
+            same_bits("cma_gen_update (second launch)", got,
+                      poisoned_update(u))
             got = cma_gen.gen_sample_rng(**r, seeds=seeds, lam=lam)
             want = ref.gen_sample_rng(**r, seeds=seeds, lam=lam)
             errs_here["cma_gen_sample_rng"] = compare(
@@ -521,10 +572,17 @@ def phase_kernels(dev):
                     errs[k] = max(errs[k], e[0])
                 rows.append({"kernel": k, "shape": [S, lam, n],
                              "dtype": str(dtype), "max_abs_err": e[0],
-                             "max_rel_err": e[1]})
+                             "max_rel_err": e[1],
+                             **({"repeat_bit_identical": True}
+                                if k == "cma_gen_update" else {})})
     rows += strategy_kernel_checks(dev, errs)
     rows += lm_kernel_checks(dev, errs)
+    bf16_worst = {name: max(r["max_elem_ratio"] for r in rows
+                            if r["kernel"] == name
+                            and r["dtype"] == str(torch.bfloat16))
+                  for name in ("flash_attention", "wkv6_forward")}
     emit({"phase": "kernels_vs_plain", "checks": rows,
+          "bf16_worst_share_of_limit": bf16_worst,
           "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
 

@@ -77,7 +77,7 @@ def _tree(tree, device):
     return tensor(tree, device)
 
 
-def lm_params(cfg, tree, device="cpu") -> dict:
+def lm_params(cfg, tree, device) -> dict:
     """The JAX package's ``lm.init_params`` tree (numpy leaves) as the
     port's: the same nested keys, every leaf a tensor of the same shape and
     dtype.  The tree must be of a family the port runs (``cfg``)."""
@@ -86,7 +86,7 @@ def lm_params(cfg, tree, device="cpu") -> dict:
     return _tree(tree, device)
 
 
-def lm_cache(tree, device="cpu") -> dict:
+def lm_cache(tree, device) -> dict:
     """A prefill cache of the JAX package (``lm.init_cache``/``prefill``,
     numpy leaves) as the port's cache dict."""
     return _tree(tree, device)

@@ -45,6 +45,7 @@ CMA_DTYPES = (torch.float32, torch.float64)
 LM_DTYPES = (torch.float32, torch.bfloat16)
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple, ctypes._CFuncPtr] = {}
 build_seconds: float | None = None
 
 
@@ -115,16 +116,23 @@ def reset_launches() -> None:
 
 
 def function(lib_name: str, fn_name: str, dtype: torch.dtype, argtypes):
-    """Entry point ``<fn_name>_<SUFFIX[dtype]>`` of library ``lib_name``."""
-    fn = getattr(library(lib_name), f"{fn_name}_{SUFFIX[dtype]}")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    """Entry point ``<fn_name>_<SUFFIX[dtype]>`` of library ``lib_name``,
+    bound once."""
+    key = (lib_name, fn_name, dtype)
+    if key not in _functions:
+        fn = getattr(library(lib_name), f"{fn_name}_{SUFFIX[dtype]}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
+    return _functions[key]
 
 
 def check(name: str, t: torch.Tensor, shape, dtype, device) -> int:
     """``t``'s pointer, once it is a contiguous CUDA tensor of ``shape`` and
     ``dtype`` on ``device``; raises otherwise."""
+    if (t.device == device and t.dtype == dtype and t.shape == tuple(shape)
+            and t.is_contiguous()):
+        return t.data_ptr()
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"one on {t.device}")
@@ -141,11 +149,17 @@ def check(name: str, t: torch.Tensor, shape, dtype, device) -> int:
 
 
 def launch(fn, label: str, device, *args) -> None:
-    """Call ``fn(*args, stream)`` on ``device``'s current stream; raise on
-    the launch error it returns, else count the launch under ``label``."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    """Call ``fn(*args, stream)`` on ``device``'s current stream, with
+    ``device`` current; raise on the launch error it returns, else count
+    the launch under ``label``."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{label}: CUDA launch error {err}")
     LAUNCHES[label] += 1

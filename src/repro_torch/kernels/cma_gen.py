@@ -5,8 +5,11 @@
 * ``gen_sample_eval`` — replaces ``cma_gen_sample_eval``: (Y, F) with the
   separable fitness in the epilogue, X never written; two launches (tile
   GEMM with per-tile row partials, then a fixed-order row reduce).
-* ``gen_update`` — replaces ``cma_gen_update``: (C′, p_σ′, p_c′, y_w); four
-  vector launches, then the upper-triangle gram-plus-epilogue launch.
+* ``gen_update`` — replaces ``cma_gen_update``: (C′, p_σ′, p_c′, y_w); a
+  gram pass split over tiles and chunks of population rows (FP64 tensor
+  cores in float64), the vector phase (one launch up to n = 128, three
+  above), then a fixed-order sum of the chunks with the C′ epilogue.  The
+  split is ``update_plan``'s; the call counts as one launch.
 * ``gen_sample_rng`` / ``gen_sample_rng_eval`` — replace
   ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the two sample
   kernels with Z drawn inside the kernel from per-slot seeds
@@ -27,6 +30,8 @@ the calls that launched each kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -46,7 +51,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     ("cma_gen_sample", "cma_gen_sample"): [_P] * 7 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_gen_sample_eval"): [_P] * 13 + [_I] * 3 + [_P],
-    ("cma_gen_update", "cma_gen_update"): [_P] * 14 + [_I] * 3 + [_P],
+    ("cma_gen_update", "cma_gen_update"): [_P] * 17 + [_I] * 8 + [_P],
     ("cma_gen_sample", "cma_gen_sample_rng"): [_P] * 7 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_gen_sample_rng_eval"): [_P] * 13 + [_I] * 3 + [_P],
     ("cma_gen_sample", "cma_sample_z_rng"): [_P] * 2 + [_I] * 3 + [_P],
@@ -186,6 +191,77 @@ def sample_z_rng(seeds, lam: int, n: int, dtype=torch.float64):
     return Z
 
 
+#: ``update_plan``'s constants, mirrored in ``csrc/cma_gen_update.cu``:
+#: the C′ tile edge, the population rows of a stage, the most rows a chunk
+#: may hold, the largest n of the one-block vector phase, the rows of B per
+#: block of its two-launch form (Bᵀy_w, then whiten), and the gram blocks
+#: the split aims for (two per SM of an H100)
+TILE, STAGE_ROWS, MAX_CHUNK_ROWS = 64, 16, 1024
+SMALL_N, T_ROWS, W_ROWS = 128, 128, 8
+TARGET_BLOCKS = 2 * 132
+EPI_THREADS = 256
+
+
+@dataclass(frozen=True)
+class UpdatePlan:
+    """How ``gen_update`` cuts one call: chunk c covers population rows
+    [c·chunk_rows, min(λ, (c+1)·chunk_rows)); the gram pass runs one block
+    per (upper-triangle tile, chunk, slot).  ``t_splits`` is 0 when one
+    block per slot does the vector phase; ``psq_parts`` is the number of
+    |p_σ′|² partials; ``lanes`` the chunk lanes of an epilogue block."""
+    S: int
+    lam: int
+    n: int
+    tiles: int
+    chunk_rows: int
+    chunks: int
+    t_splits: int
+    psq_parts: int
+    lanes: int
+
+    @property
+    def gram_blocks(self) -> int:
+        return self.S * self.tiles * self.chunks
+
+    def scratch(self) -> dict[str, int]:
+        """Elements of each scratch array, in the order they are laid out
+        in one buffer: the partial tiles, the partial y_w, the row-split
+        partials of Bᵀy_w, the |p_σ′|² partials and (decay, pull)."""
+        S, n = self.S, self.n
+        return {"gram": S * self.chunks * self.tiles * TILE * TILE,
+                "y_w": S * self.chunks * n,
+                "t": S * max(self.t_splits, 1) * n,
+                "psq": S * self.psq_parts, "scal": S * 2}
+
+    def chunk_bounds(self) -> list[tuple[int, int]]:
+        return [(c * self.chunk_rows, min(self.lam, (c + 1) * self.chunk_rows))
+                for c in range(self.chunks)]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def update_plan(S: int, lam: int, n: int) -> UpdatePlan:
+    """The split of one ``gen_update`` call at (S, λ, n): as many chunks
+    (whole stages of rows, at most ``MAX_CHUNK_ROWS`` each) as it takes to
+    reach ``TARGET_BLOCKS`` gram blocks, no more than one a stage."""
+    nt = _cdiv(n, TILE)
+    tiles = nt * (nt + 1) // 2
+    want = max(_cdiv(TARGET_BLOCKS, S * tiles), _cdiv(lam, MAX_CHUNK_ROWS))
+    chunks = max(1, min(want, _cdiv(lam, STAGE_ROWS)))
+    chunk_rows = _cdiv(_cdiv(lam, chunks), STAGE_ROWS) * STAGE_ROWS
+    chunks = _cdiv(lam, chunk_rows)
+    small = n <= SMALL_N
+    lanes = 1
+    while lanes < min(chunks, 8):
+        lanes *= 2
+    return UpdatePlan(S=S, lam=lam, n=n, tiles=tiles, chunk_rows=chunk_rows,
+                      chunks=chunks, t_splits=0 if small else _cdiv(n, T_ROWS),
+                      psq_parts=1 if small else _cdiv(n, W_ROWS), lanes=lanes)
+
+
 def gen_update(C, B, D, p_sigma, p_c, Y, w, coef):
     """(C′, p_σ′, p_c′, y_w) from C, B (S,n,n), D, p_sigma, p_c (S,n),
     Y (S,λ,n), w (S,λ) and ``coef`` (S, 7) in ``COEF_FIELDS`` order."""
@@ -203,13 +279,19 @@ def gen_update(C, B, D, p_sigma, p_c, Y, w, coef):
             _check("p_c", p_c, (S, n), dt, dev),
             _check("Y", Y, (S, lam, n), dt, dev), _check("w", w, (S, lam), dt, dev),
             _check("coef", coef, (S, len(COEF_FIELDS)), dt, dev)]
+    plan = update_plan(S, lam, n)
     C_new = torch.empty_like(C)
-    ps_new = torch.empty_like(p_sigma)
-    pc_new = torch.empty_like(p_c)
-    y_w = torch.empty_like(p_c)
-    t = torch.empty_like(p_c)
-    scal = torch.empty((S, 2), dtype=dt, device=dev)
+    ps_new, pc_new, y_w = torch.empty((3, S, n), dtype=dt,
+                                      device=dev).unbind(0)
+    sizes = plan.scratch()
+    scratch = torch.empty(sum(sizes.values()), dtype=dt, device=dev)
+    offsets = [0]
+    for size in list(sizes.values())[:-1]:
+        offsets.append(offsets[-1] + size)
+    base, esz = scratch.data_ptr(), scratch.element_size()
     _launch(_fn("cma_gen_update", "cma_gen_update", dt), "cma_gen_update",
             dev, *ptrs, C_new.data_ptr(), ps_new.data_ptr(), pc_new.data_ptr(),
-            y_w.data_ptr(), t.data_ptr(), scal.data_ptr(), S, lam, n)
+            y_w.data_ptr(), *(base + esz * o for o in offsets), S, lam, n,
+            plan.chunk_rows, plan.chunks, plan.t_splits, plan.psq_parts,
+            plan.lanes)
     return C_new, ps_new, pc_new, y_w

@@ -11,26 +11,43 @@
 //   decay  = 1 - c_1 - c_mu + (1 - h_sigma) c_1 c_c (2 - c_c)
 //   C'     = decay C + c_mu Y_s^T Y_s + c_1 p_c' p_c'^T
 //
-// The TPU kernel holds whole (n, n) tiles in VMEM; 227 KB of shared memory
-// cannot, so the update is split.  Phase (i), four small launches per call,
-// computes the vectors: y_w (one thread per coordinate, skipping zero-weight
-// rows), t = (B^T y_w) / max(D, floor) (one thread per coordinate), whiten
-// and p_sigma' (one warp per row of B, shuffle reduction), then |p_sigma'|,
-// h_sigma, decay and p_c' (one block per slot, fixed-order tree reduction).
-// Phase (ii) is a tiled GEMM over the upper-triangle 64 x 64 tiles of C'
-// only: each block accumulates Y_s^T Y_s for its tile over the population
-// in stages of 16 rows (a stage whose 16 weights are all zero is skipped:
-// the padding rows of a small rung cost nothing), applies the epilogue in
-// registers and writes each value with i <= j to both (i, j) and (j, i), so
-// C' is exactly symmetric.  Every sum is in a fixed order: the result does
-// not vary from run to run.
+// What bounds it: the gram is n^2 lam_nz FLOP over the upper triangle
+// (lam_nz the rows of non-zero weight), 1.5 GFLOP at n = 1000 and
+// lam = 3072, against about 40 MB of traffic: bound by FP64 arithmetic
+// (23 us at the 67 TFLOP/s tensor-core rate).  At n = 40 the whole update
+// moves 1 MB and is bound by bytes (under 1 us): there only the depth of
+// the lam walk and the number of launches count.
 //
-// What bounds it: the gram is n^2 * lam_nz FLOP (upper triangle, lam_nz the
-// rows with non-zero weight), 1.5 GFLOP at n = 1000 with 1536 weighted rows,
-// against about 40 MB of traffic, so it is bound by FP64 arithmetic;
-// phase (i) moves B twice (16 MB at n = 1000) and is bound by bytes.  Faster
-// forms (FP64 tensor-core tiles, fusing phase (i) into fewer launches) are
-// later work.
+// The TPU kernel walks the population in one sequential grid; on 132 SMs
+// that walk must be cut, so one call is three launches (n <= 128) or five,
+// all in a fixed order (no atomics: the result does not vary from run to
+// run):
+//
+// 1. gram_kernel, one block per (upper-triangle 64 x 64 tile of C', chunk
+//    of population rows, slot).  The chunks are cut by the wrapper
+//    (cma_gen.update_plan) so that at n = 40 and at n = 1000 at least 132
+//    blocks are in flight.  A block first lists its chunk's rows of
+//    non-zero weight in order (a ballot scan in shared memory), so the
+//    weighted rows, scattered through Y in sample order, are the only rows
+//    it stages.  Y slabs of 16 listed rows come in by cp.async (16 bytes a
+//    copy where n keeps rows aligned) into a ring of three stages.  float64
+//    tiles run on the FP64 tensor cores (DMMA, mma.sync m16n8k16: four
+//    warps of 32 x 32), with w applied to the A fragment in registers;
+//    float32 stays on FFMA (TF32 would miss the 1e-4 tolerance) over the
+//    same slabs.  A block on a diagonal tile also sums w Y over its 64
+//    columns: y_w is the gram against the sqrt(w) column, so it costs no
+//    separate walk.  Each block writes its partial tile and partial y_w to
+//    scratch.
+// 2. The vector phase.  For n <= 128 one block per slot (vec_small_kernel)
+//    sums the y_w partials, then does B^T y_w / D, whiten, p_sigma',
+//    |p_sigma'|, h_sigma, decay and the p_c' pull.  Above that, B (8 MB at
+//    n = 1000, read twice) is streamed by many blocks: t_kernel (32 columns
+//    by 128 rows a block: 256 blocks at n = 1000) and whiten_kernel (8 rows
+//    a block, one warp a row), each block writing a partial of B^T y_w or
+//    of |p_sigma'|^2; paths_kernel sums the latter for h_sigma.
+// 3. epilogue_kernel sums the partial tiles in chunk order and writes
+//    p_c' and each C' value with i <= j to (i, j) and (j, i): C' is exactly
+//    symmetric.
 #include <cmath>
 
 #include "cma_gen_common.cuh"
@@ -39,14 +56,17 @@ namespace {
 
 enum Coef { C_SIGMA = 0, MU_EFF, C_C, C_1, C_MU, CHI_N, GEN1, N_COEF };
 
-constexpr int VEC_THREADS = 256;
-constexpr int ROWS_PER_BLOCK = 8;     // warps per block in the whiten kernel
-constexpr int PATH_THREADS = 1024;
+// These constants are mirrored by cma_gen.update_plan.
 constexpr int BT = 64;                // edge of a C' tile
-constexpr int BK = 16;                // population rows per stage
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int GRAM_THREADS = TX * TY;
+constexpr int BK = 16;                // listed population rows per stage
+constexpr int STAGES = 3;             // cp.async ring depth
+constexpr int LD = BT + 4;            // slab row pitch: conflict-free DMMA
+constexpr int MAX_CHUNK_ROWS = 1024;  // population rows a chunk may hold
+constexpr int VEC_THREADS = 256;
+constexpr int T_COLS = 32;            // t_kernel: columns of B a block
+constexpr int T_ROWS = 128;           // t_kernel: rows of B a block
+constexpr int W_ROWS = 8;             // whiten_kernel: rows (warps) a block
+constexpr int EPI_THREADS = 256;
 
 template <typename T>
 __device__ __forceinline__ T whiten_floor();
@@ -55,236 +75,604 @@ __device__ __forceinline__ float whiten_floor<float>() { return 1e-30f; }
 template <>
 __device__ __forceinline__ double whiten_floor<double>() { return 1e-300; }
 
-// y_w[s, j] = sum_k (sqrt(w_k) Y[s, k, j]) sqrt(w_k)
 template <typename T>
-__global__ void yw_kernel(const T* __restrict__ Y, const T* __restrict__ w,
-                          T* __restrict__ yw, int lam, int n) {
-  const int s = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const T* Ys = Y + static_cast<size_t>(s) * lam * n;
-  const T* ws = w + static_cast<size_t>(s) * lam;
-  T acc = T(0);
-  for (int k = 0; k < lam; ++k) {
-    const T wk = ws[k];
-    if (wk == T(0)) continue;                 // the same k for every thread
-    const T rw = sqrt(wk);
-    acc += (rw * Ys[static_cast<size_t>(k) * n + j]) * rw;
-  }
-  yw[static_cast<size_t>(s) * n + j] = acc;
-}
+struct GramSmem {
+  T a[STAGES][BK][LD];
+  T b[STAGES][BK][LD];
+  T wl[MAX_CHUNK_ROWS];               // weights of the listed rows
+  int idx[MAX_CHUNK_ROWS];            // the listed rows, ascending
+  int warp_tot[32];
+};
 
-// t[s, k] = (sum_j B[s, j, k] y_w[s, j]) / max(D[s, k], floor)
-template <typename T>
-__global__ void whiten_t_kernel(const T* __restrict__ B,
-                                const T* __restrict__ D,
-                                const T* __restrict__ yw, T* __restrict__ t,
-                                int n) {
-  const int s = blockIdx.y;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const T* Bm = B + static_cast<size_t>(s) * n * n;
-  const T* y = yw + static_cast<size_t>(s) * n;
-  T acc = T(0);
-  for (int j = 0; j < n; ++j) acc += Bm[static_cast<size_t>(j) * n + k] * y[j];
-  t[static_cast<size_t>(s) * n + k] =
-      acc / fmax(D[static_cast<size_t>(s) * n + k], whiten_floor<T>());
-}
-
-// whiten[s, i] = sum_k B[s, i, k] t[s, k]; writes p_sigma'[s, i].
-template <typename T>
-__global__ void whiten_kernel(const T* __restrict__ B,
-                              const T* __restrict__ t,
-                              const T* __restrict__ ps,
-                              const T* __restrict__ coef,
-                              T* __restrict__ psn, int n) {
-  const int s = blockIdx.y;
-  const int lane = threadIdx.x % 32;
-  const int i = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  if (i >= n) return;                          // whole warps leave together
-  const T* row = B + (static_cast<size_t>(s) * n + i) * n;
-  const T* tv = t + static_cast<size_t>(s) * n;
-  T acc = T(0);
-  for (int k = lane; k < n; k += 32) acc += row[k] * tv[k];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const T* c = coef + static_cast<size_t>(s) * N_COEF;
-    const T cs = c[C_SIGMA];
-    const size_t o = static_cast<size_t>(s) * n + i;
-    psn[o] = (T(1) - cs) * ps[o] + sqrt(cs * (T(2) - cs) * c[MU_EFF]) * acc;
-  }
-}
-
-// |p_sigma'|, h_sigma, decay and p_c' for one slot per block.
-template <typename T>
-__global__ void __launch_bounds__(PATH_THREADS) paths_kernel(
-    const T* __restrict__ psn, const T* __restrict__ pc,
-    const T* __restrict__ yw, const T* __restrict__ coef,
-    T* __restrict__ pcn, T* __restrict__ scal, int n) {
-  __shared__ T part[PATH_THREADS];
-  __shared__ T h_shared;
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const T* p = psn + static_cast<size_t>(s) * n;
-  T acc = T(0);
-  for (int j = tid; j < n; j += PATH_THREADS) acc += p[j] * p[j];
-  part[tid] = acc;
-  __syncthreads();
-  for (int half = PATH_THREADS / 2; half > 0; half >>= 1) {
-    if (tid < half) part[tid] += part[tid + half];
-    __syncthreads();
-  }
-  const T* c = coef + static_cast<size_t>(s) * N_COEF;
-  if (tid == 0) {
-    const T cs = c[C_SIGMA];
-    const T cc = c[C_C];
-    const T ps_norm = sqrt(part[0]);
-    const T denom = sqrt(T(1) - pow(T(1) - cs, T(2) * c[GEN1]));
-    const T h = (ps_norm / denom / c[CHI_N] < T(1.4) + T(2) / (n + T(1)))
-                    ? T(1) : T(0);
-    scal[2 * s] = h;
-    scal[2 * s + 1] = T(1) - c[C_1] - c[C_MU] +
-                      (T(1) - h) * c[C_1] * cc * (T(2) - cc);
-    h_shared = h;
-  }
-  __syncthreads();
-  const T cc = c[C_C];
-  const T pull = h_shared * sqrt(cc * (T(2) - cc) * c[MU_EFF]);
-  for (int j = tid; j < n; j += PATH_THREADS) {
-    const size_t o = static_cast<size_t>(s) * n + j;
-    pcn[o] = (T(1) - cc) * pc[o] + pull * yw[o];
-  }
-}
-
-// C' over the upper-triangle tiles, mirrored.
-template <typename T>
-__global__ void __launch_bounds__(GRAM_THREADS) gram_kernel(
-    const T* __restrict__ C, const T* __restrict__ Y,
-    const T* __restrict__ w, const T* __restrict__ pcn,
-    const T* __restrict__ coef, const T* __restrict__ scal,
-    T* __restrict__ Cn, int lam, int n, int nt) {
-  __shared__ T As[BK][BT];
-  __shared__ T Bs[BK][BT];
-  __shared__ T rws[BK];
-  const int s = blockIdx.y;
-  int bi = 0;
-  int rem = blockIdx.x;
-  while (rem >= nt - bi) {
-    rem -= nt - bi;
+__device__ __forceinline__ void tile_of(int tile, int nt, int& bi, int& bj) {
+  bi = 0;
+  while (tile >= nt - bi) {
+    tile -= nt - bi;
     ++bi;
   }
-  const int bj = bi + rem;
-  const int i0 = bi * BT;
-  const int j0 = bj * BT;
+  bj = bi + tile;
+}
+
+// BYTES (4, 8 or 16) global -> shared, zero-filled where !ok.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = ok ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b for one 16 x 8 x 16 FP64 tensor-core tile (an sm_90 shape).
+// Fragments, g = lane / 4, t = lane % 4:
+//   a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g],
+//   d[i] = D[g + 8 (i / 2)][2 t + i % 2].
+constexpr int DMMA_K = 16;
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
+                                     const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// Lists the rows of [r0, r1) with non-zero weight, ascending, into sm.idx
+// and sm.wl; pads sm.wl with zeros to a whole stage; returns the count.
+template <typename T>
+__device__ int list_rows(const T* __restrict__ ws, int r0, int r1,
+                         GramSmem<T>& sm) {
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const T* Ys = Y + static_cast<size_t>(s) * lam * n;
-  const T* ws = w + static_cast<size_t>(s) * lam;
-
-  T acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
-
-  for (int k0 = 0; k0 < lam; k0 += BK) {
-    bool any = false;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk)
-      any |= (k0 + kk < lam) && ws[k0 + kk] != T(0);
-    if (!any) continue;                        // the same for every thread
-    if (tid < BK) rws[tid] = k0 + tid < lam ? sqrt(ws[k0 + tid]) : T(0);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  int base = 0;
+  for (int g = r0; g < r1; g += blockDim.x) {
+    const int r = g + tid;
+    const T wr = r < r1 ? ws[r] : T(0);
+    const bool keep = wr != T(0);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) sm.warp_tot[warp] = __popc(m);
     __syncthreads();
-#pragma unroll
-    for (int q = 0; q < (BT * BK) / GRAM_THREADS; ++q) {
-      const int e = tid + GRAM_THREADS * q;
-      const int kk = e / BT;
-      const int col = e % BT;
-      const int k = k0 + kk;
-      const size_t base = static_cast<size_t>(k) * n;
-      const int i = i0 + col;
-      const int j = j0 + col;
-      As[kk][col] = (k < lam && i < n) ? rws[kk] * Ys[base + i] : T(0);
-      Bs[kk][col] = (k < lam && j < n) ? rws[kk] * Ys[base + j] : T(0);
+    int off = base;
+    for (int q = 0; q < warp; ++q) off += sm.warp_tot[q];
+    off += __popc(m & ((1u << lane) - 1u));
+    if (keep) {
+      sm.idx[off] = r;
+      sm.wl[off] = wr;
     }
+    for (int q = 0; q < nw; ++q) base += sm.warp_tot[q];
     __syncthreads();
+  }
+  const int padded = cma_gen::cdiv(base, BK) * BK;
+  for (int q = base + tid; q < padded; q += blockDim.x) sm.wl[q] = T(0);
+  __syncthreads();
+  return base;
+}
+
+// One block's 64 x 64 tile of the gram, accumulated stage by stage from
+// the slabs As (rows of the tile's i columns) and Bs (its j columns) with
+// the stage's weights w.  float64: four warps, each a 32 x 32 quarter in
+// DMMA 16 x 8 tiles; float32: 16 x 16 threads, each 4 x 4 values on FFMA.
+template <typename T>
+struct GramTile;
+
+template <>
+struct GramTile<double> {
+  static constexpr int THREADS = 128;
+  double acc[2][4][4] = {};
+
+  __device__ __forceinline__ void stage(const double (*As)[LD],
+                                        const double (*Bs)[LD],
+                                        const double* w, int tid) {
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wr = (tid >> 6) * 32;
+    const int wc = ((tid >> 5) & 1) * 32;
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += DMMA_K) {
+      double a[2][DMMA_K / 2], b[4][DMMA_K / 4];
+#pragma unroll
+      for (int i = 0; i < DMMA_K / 2; ++i) {
+        const int kk = k0 + t + 4 * (i / 2);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          a[mi][i] = As[kk][wr + 16 * mi + g + 8 * (i % 2)] * w[kk];
+      }
+#pragma unroll
+      for (int i = 0; i < DMMA_K / 4; ++i)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          b[ni][i] = Bs[k0 + t + 4 * i][wc + 8 * ni + g];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) dmma(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+
+  // Writes the entries (r, c) of the tile with i0 + r, j0 + c < n.
+  __device__ __forceinline__ void store(double* out, int i0, int j0, int n,
+                                        int tid) const {
+    const int lane = tid & 31;
+    const int wr = (tid >> 6) * 32 + (lane >> 2);
+    const int wc = ((tid >> 5) & 1) * 32 + 2 * (lane & 3);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wr + 16 * mi + 8 * (e / 2);
+          const int c = wc + 8 * ni + e % 2;
+          if (i0 + r < n && j0 + c < n) out[r * BT + c] = acc[mi][ni][e];
+        }
+  }
+};
+
+template <>
+struct GramTile<float> {
+  static constexpr int THREADS = 256;
+  float acc[4][4] = {};
+
+  __device__ __forceinline__ void stage(const float (*As)[LD],
+                                        const float (*Bs)[LD],
+                                        const float* w, int tid) {
+    const int tx = tid % 16;
+    const int ty = tid / 16;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      T av[4], bv[4];
+      float av[4], bv[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + TY * a];
+      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + 16 * a] * w[kk];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + TX * b];
+      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + 16 * b];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) acc[a][b] += av[a] * bv[b];
     }
-    __syncthreads();
   }
 
-  const T* c = coef + static_cast<size_t>(s) * N_COEF;
-  const T c1 = c[C_1];
-  const T cmu = c[C_MU];
-  const T decay = scal[2 * s + 1];
-  const T* p = pcn + static_cast<size_t>(s) * n;
-  const T* Cs = C + static_cast<size_t>(s) * n * n;
-  T* Cns = Cn + static_cast<size_t>(s) * n * n;
+  __device__ __forceinline__ void store(float* out, int i0, int j0, int n,
+                                        int tid) const {
+    const int tx = tid % 16;
+    const int ty = tid / 16;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + TY * a;
+    for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + TX * b;
-      if (i < n && j < n && i <= j) {
-        const size_t ij = static_cast<size_t>(i) * n + j;
-        const T v = decay * Cs[ij] + cmu * acc[a][b] + (c1 * p[i]) * p[j];
-        Cns[ij] = v;
-        Cns[static_cast<size_t>(j) * n + i] = v;
+      for (int b = 0; b < 4; ++b) {
+        const int r = ty + 16 * a;
+        const int c = tx + 16 * b;
+        if (i0 + r < n && j0 + c < n) out[r * BT + c] = acc[a][b];
+      }
+  }
+};
+
+// Partial gram (and, on diagonal tiles, partial y_w) of one tile over one
+// chunk of population rows.  Gp is (S, chunks, tiles, BT, BT), Yp
+// (S, chunks, n); only entries inside n x n are written.
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(GramTile<T>::THREADS) gram_kernel(
+    const T* __restrict__ Y, const T* __restrict__ w, T* __restrict__ Gp,
+    T* __restrict__ Yp, int lam, int n, int nt, int chunk_rows, int chunks) {
+  constexpr int NT = GramTile<T>::THREADS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  GramSmem<T>& sm = *reinterpret_cast<GramSmem<T>*>(smem_raw);
+  const int tile = blockIdx.x;
+  const int ch = blockIdx.y;
+  const int s = blockIdx.z;
+  const int tiles = gridDim.x;
+  int bi, bj;
+  tile_of(tile, nt, bi, bj);
+  const bool diag = bi == bj;
+  const int i0 = bi * BT;
+  const int j0 = bj * BT;
+  const int tid = threadIdx.x;
+  const T* Ys = Y + static_cast<size_t>(s) * lam * n;
+  const int r0 = ch * chunk_rows;
+  const int r1 = min(lam, r0 + chunk_rows);
+  const int cnt = list_rows(w + static_cast<size_t>(s) * lam, r0, r1, sm);
+  const int nst = cma_gen::cdiv(cnt, BK);
+
+  // VEC elements a copy: 16 bytes when n keeps every row 16-byte aligned
+  constexpr int VEC = WIDE ? 16 / sizeof(T) : 1;
+  auto issue = [&](int st) {
+    const int slot = st % STAGES;
+    for (int e = tid * VEC; e < BK * BT; e += NT * VEC) {
+      const int kk = e / BT;
+      const int c = e % BT;
+      const int q = st * BK + kk;
+      const bool row_ok = q < cnt;
+      const T* row = Ys + (row_ok ? static_cast<size_t>(sm.idx[q]) * n : 0);
+      const bool a_ok = row_ok && i0 + c < n;
+      cp_async<VEC * sizeof(T)>(&sm.a[slot][kk][c], a_ok ? row + i0 + c : Ys,
+                                a_ok);
+      if (!diag) {
+        const bool b_ok = row_ok && j0 + c < n;
+        cp_async<VEC * sizeof(T)>(&sm.b[slot][kk][c],
+                                  b_ok ? row + j0 + c : Ys, b_ok);
       }
     }
+  };
+
+  GramTile<T> gram;
+  T yw_acc = T(0);
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < nst) issue(p);
+    cp_async_commit();
   }
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (st + STAGES - 1 < nst) issue(st + STAGES - 1);
+    cp_async_commit();
+    const int slot = st % STAGES;
+    const T* wst = sm.wl + st * BK;
+    gram.stage(sm.a[slot], diag ? sm.a[slot] : sm.b[slot], wst, tid);
+    if (diag && tid < BT) {
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) yw_acc += wst[kk] * sm.a[slot][kk][tid];
+    }
+  }
+  cp_async_wait<0>();
+  gram.store(Gp + ((static_cast<size_t>(s) * chunks + ch) * tiles + tile) *
+                      BT * BT,
+             i0, j0, n, tid);
+  if (diag && tid < BT && i0 + tid < n)
+    Yp[(static_cast<size_t>(s) * chunks + ch) * n + i0 + tid] = yw_acc;
+}
+
+// The chunks' y_w partials summed in chunk order.
+template <typename T>
+__device__ __forceinline__ T sum_yw(const T* __restrict__ Yp, int s, int j,
+                                    int n, int chunks) {
+  T acc = T(0);
+  for (int ch = 0; ch < chunks; ++ch)
+    acc += Yp[(static_cast<size_t>(s) * chunks + ch) * n + j];
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T p_sigma_new(const T* c, T ps, T whiten) {
+  const T cs = c[C_SIGMA];
+  return (T(1) - cs) * ps + sqrt(cs * (T(2) - cs) * c[MU_EFF]) * whiten;
+}
+
+// h_sigma from |p_sigma'|^2, then (decay, pull = h_sigma sqrt(c_c (2 - c_c)
+// mu_eff)) into scal[0..1].
+template <typename T>
+__device__ __forceinline__ void path_scalars(const T* c, T psq, int n,
+                                             T* scal) {
+  const T cs = c[C_SIGMA];
+  const T cc = c[C_C];
+  const T denom = sqrt(T(1) - pow(T(1) - cs, T(2) * c[GEN1]));
+  const T h = (sqrt(psq) / denom / c[CHI_N] < T(1.4) + T(2) / (n + T(1)))
+                  ? T(1) : T(0);
+  scal[0] = T(1) - c[C_1] - c[C_MU] + (T(1) - h) * c[C_1] * cc * (T(2) - cc);
+  scal[1] = h * sqrt(cc * (T(2) - cc) * c[MU_EFF]);
+}
+
+// n <= 128: the whole vector phase of one slot in one block: y_w (the
+// chunks' partials summed by eight lanes a column, each over every eighth
+// chunk, then the lanes in order), t, whiten, p_sigma', |p_sigma'|^2 and
+// the path scalars.
+template <typename T>
+__global__ void __launch_bounds__(VEC_THREADS) vec_small_kernel(
+    const T* __restrict__ B, const T* __restrict__ D,
+    const T* __restrict__ ps, const T* __restrict__ coef,
+    const T* __restrict__ Yp, T* __restrict__ yw, T* __restrict__ psn,
+    T* __restrict__ scal, int n, int chunks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* yws = reinterpret_cast<T*>(smem_raw);    // [n]
+  T* ts = yws + n;                            // [n]
+  __shared__ T part[VEC_THREADS];
+  const int s = blockIdx.x;
+  const int tid = threadIdx.x;
+  const size_t o = static_cast<size_t>(s) * n;
+  const T* Bm = B + o * n;
+  constexpr int LANES = VEC_THREADS / 32;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + tid % 32;
+    T acc = T(0);
+    if (j < n)
+      for (int ch = tid / 32; ch < chunks; ch += LANES)
+        acc += Yp[(static_cast<size_t>(s) * chunks + ch) * n + j];
+    part[tid] = acc;
+    __syncthreads();
+    if (tid < 32 && j < n) {
+      T y = part[tid];
+#pragma unroll
+      for (int q = 1; q < LANES; ++q) y += part[tid + 32 * q];
+      yws[j] = y;
+      yw[o + j] = y;
+    }
+    __syncthreads();
+  }
+  for (int k = tid; k < n; k += VEC_THREADS) {
+    T acc = T(0);
+    for (int j = 0; j < n; ++j)
+      acc += Bm[static_cast<size_t>(j) * n + k] * yws[j];
+    ts[k] = acc / fmax(D[o + k], whiten_floor<T>());
+  }
+  __syncthreads();
+  const T* c = coef + static_cast<size_t>(s) * N_COEF;
+  T sq = T(0);
+  for (int i = tid; i < n; i += VEC_THREADS) {
+    T acc = T(0);
+    for (int k = 0; k < n; ++k)
+      acc += Bm[static_cast<size_t>(i) * n + k] * ts[k];
+    const T p = p_sigma_new(c, ps[o + i], acc);
+    psn[o + i] = p;
+    sq += p * p;
+  }
+  part[tid] = sq;
+  __syncthreads();
+  for (int half = VEC_THREADS / 2; half > 0; half >>= 1) {
+    if (tid < half) part[tid] += part[tid + half];
+    __syncthreads();
+  }
+  if (tid == 0) path_scalars(c, part[0], n, scal + 2 * s);
+}
+
+// Partial t[k] = sum_j B[j, k] y_w[j] over rows [y*T_ROWS, +T_ROWS); the
+// blocks of column group 0 also write y_w for their rows.
+template <typename T>
+__global__ void __launch_bounds__(VEC_THREADS) t_kernel(
+    const T* __restrict__ B, const T* __restrict__ Yp, T* __restrict__ yw,
+    T* __restrict__ tpart, int n, int chunks) {
+  __shared__ T yws[T_ROWS];
+  __shared__ T part[VEC_THREADS / T_COLS][T_COLS];
+  const int s = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int col = tid % T_COLS;
+  const int lane = tid / T_COLS;
+  const int k = blockIdx.x * T_COLS + col;
+  const int j0 = blockIdx.y * T_ROWS;
+  const int j1 = min(n, j0 + T_ROWS);
+  const size_t o = static_cast<size_t>(s) * n;
+  for (int jj = tid; jj < j1 - j0; jj += VEC_THREADS) {
+    const T y = sum_yw(Yp, s, j0 + jj, n, chunks);
+    yws[jj] = y;
+    if (blockIdx.x == 0) yw[o + j0 + jj] = y;
+  }
+  __syncthreads();
+  T acc = T(0);
+  if (k < n) {
+    const T* Bm = B + o * n;
+#pragma unroll 4
+    for (int j = j0 + lane; j < j1; j += VEC_THREADS / T_COLS)
+      acc += Bm[static_cast<size_t>(j) * n + k] * yws[j - j0];
+  }
+  part[lane][col] = acc;
+  __syncthreads();
+  if (lane == 0 && k < n) {
+    T tot = part[0][col];
+#pragma unroll
+    for (int q = 1; q < VEC_THREADS / T_COLS; ++q) tot += part[q][col];
+    tpart[(static_cast<size_t>(s) * gridDim.y + blockIdx.y) * n + k] = tot;
+  }
+}
+
+// whiten and p_sigma' for W_ROWS rows (one warp a row), with t summed from
+// its row-split partials; writes this block's part of |p_sigma'|^2.
+template <typename T>
+__global__ void __launch_bounds__(W_ROWS * 32) whiten_kernel(
+    const T* __restrict__ B, const T* __restrict__ D,
+    const T* __restrict__ ps, const T* __restrict__ coef,
+    const T* __restrict__ tpart, T* __restrict__ psn, T* __restrict__ psq,
+    int n, int t_splits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ts = reinterpret_cast<T*>(smem_raw);     // [n]
+  __shared__ T sq[W_ROWS];
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const size_t o = static_cast<size_t>(s) * n;
+  for (int k = tid; k < n; k += W_ROWS * 32) {
+    T acc = T(0);
+    for (int q = 0; q < t_splits; ++q)
+      acc += tpart[(static_cast<size_t>(s) * t_splits + q) * n + k];
+    ts[k] = acc / fmax(D[o + k], whiten_floor<T>());
+  }
+  __syncthreads();
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int i = blockIdx.x * W_ROWS + warp;
+  T p = T(0);
+  if (i < n) {
+    const T* row = B + (o + i) * n;
+    T acc = T(0);
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) acc += row[k] * ts[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    p = p_sigma_new(coef + static_cast<size_t>(s) * N_COEF, ps[o + i], acc);
+    if (lane == 0) psn[o + i] = p;
+  }
+  if (lane == 0) sq[warp] = p * p;
+  __syncthreads();
+  if (tid == 0) {
+    T tot = sq[0];
+#pragma unroll
+    for (int q = 1; q < W_ROWS; ++q) tot += sq[q];
+    psq[static_cast<size_t>(s) * gridDim.x + blockIdx.x] = tot;
+  }
+}
+
+// The path scalars of one slot from whiten_kernel's |p_sigma'|^2 partials.
+template <typename T>
+__global__ void __launch_bounds__(32) paths_kernel(
+    const T* __restrict__ coef, const T* __restrict__ psq,
+    T* __restrict__ scal, int n, int psq_parts) {
+  const int s = blockIdx.x;
+  T acc = T(0);
+  for (int q = threadIdx.x; q < psq_parts; q += 32)
+    acc += psq[static_cast<size_t>(s) * psq_parts + q];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (threadIdx.x == 0)
+    path_scalars(coef + static_cast<size_t>(s) * N_COEF, acc, n,
+                 scal + 2 * s);
+}
+
+// C' for EPI_THREADS / lanes elements of one tile: the partial tiles summed
+// in chunk order (lane l takes chunks l, l + lanes, ...), then the lanes in
+// order; h_sigma, decay and p_c' from the |p_sigma'|^2 partials.
+template <typename T>
+__global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
+    const T* __restrict__ C, const T* __restrict__ pc,
+    const T* __restrict__ yw, const T* __restrict__ coef,
+    const T* __restrict__ Gp, const T* __restrict__ scal,
+    T* __restrict__ Cn, T* __restrict__ pcn, int n, int nt, int chunks,
+    int lanes) {
+  __shared__ T part[EPI_THREADS];
+  const int tile = blockIdx.x;
+  const int s = blockIdx.z;
+  const int tiles = gridDim.x;
+  int bi, bj;
+  tile_of(tile, nt, bi, bj);
+  const int epb = EPI_THREADS / lanes;
+  const int e0 = blockIdx.y * epb;
+  if (bi * BT + e0 / BT >= n) return;          // the whole block is past n
+  const int tid = threadIdx.x;
+  const int e = e0 + tid % epb;
+  const int l = tid / epb;
+  const int i = bi * BT + e / BT;
+  const int j = bj * BT + e % BT;
+  const bool ok = e < BT * BT && i < n && j < n && i <= j;
+  T g = T(0);
+  if (ok) {
+    const T* gp =
+        Gp + (static_cast<size_t>(s) * chunks * tiles + tile) * BT * BT + e;
+    for (int ch = l; ch < chunks; ch += lanes)
+      g += gp[static_cast<size_t>(ch) * tiles * BT * BT];
+  }
+  part[tid] = g;
+  __syncthreads();
+  if (l != 0 || !ok) return;
+  for (int q = 1; q < lanes; ++q) g += part[tid + q * epb];
+  const T* c = coef + static_cast<size_t>(s) * N_COEF;
+  const T decay = scal[2 * s];
+  const T pull = scal[2 * s + 1];
+  const T cc = c[C_C];
+  const size_t o = static_cast<size_t>(s) * n;
+  const T pi = (T(1) - cc) * pc[o + i] + pull * yw[o + i];
+  const T pj = (T(1) - cc) * pc[o + j] + pull * yw[o + j];
+  const size_t ij = (o + i) * n + j;
+  const T v = decay * C[ij] + c[C_MU] * g + (c[C_1] * pi) * pj;
+  Cn[ij] = v;
+  Cn[(o + j) * n + i] = v;
+  if (i == j) pcn[o + i] = pi;
+}
+
+// Raises a kernel's dynamic shared-memory limit past the default 48 KB,
+// once per device and size.
+template <auto Kernel>
+int set_smem(size_t bytes) {
+  static size_t done[64] = {};
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 64 && done[dev] >= bytes) return 0;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
+  return static_cast<int>(err);
 }
 
 template <typename T>
 int launch_update(const T* C, const T* B, const T* D, const T* ps,
                   const T* pc, const T* Y, const T* w, const T* coef, T* Cn,
-                  T* psn, T* pcn, T* yw, T* t, T* scal, int S, int lam, int n,
+                  T* psn, T* pcn, T* yw, T* Gp, T* Yp, T* tpart, T* psq,
+                  T* scal, int S, int lam, int n, int chunk_rows, int chunks,
+                  int t_splits, int psq_parts, int lanes,
                   cudaStream_t stream) {
   using cma_gen::cdiv;
+  if (chunk_rows > MAX_CHUNK_ROWS || chunk_rows % BK || chunks < 1 ||
+      static_cast<long long>(chunks) * chunk_rows < lam || lanes < 1 ||
+      EPI_THREADS % lanes ||
+      (t_splits == 0 ? psq_parts != 1
+                     : t_splits != cdiv(n, T_ROWS) ||
+                           psq_parts != cdiv(n, W_ROWS)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err;
-  const dim3 vgrid(cdiv(n, VEC_THREADS), S);
-  yw_kernel<T><<<vgrid, VEC_THREADS, 0, stream>>>(Y, w, yw, lam, n);
-  if ((err = cma_gen::launch_status()) != 0) return err;
-  whiten_t_kernel<T><<<vgrid, VEC_THREADS, 0, stream>>>(B, D, yw, t, n);
-  if ((err = cma_gen::launch_status()) != 0) return err;
-  const dim3 wgrid(cdiv(n, ROWS_PER_BLOCK), S);
-  whiten_kernel<T><<<wgrid, ROWS_PER_BLOCK * 32, 0, stream>>>(B, t, ps, coef,
-                                                             psn, n);
-  if ((err = cma_gen::launch_status()) != 0) return err;
-  paths_kernel<T><<<S, PATH_THREADS, 0, stream>>>(psn, pc, yw, coef, pcn,
-                                                  scal, n);
-  if ((err = cma_gen::launch_status()) != 0) return err;
   const int nt = cdiv(n, BT);
-  const dim3 ggrid(nt * (nt + 1) / 2, S);
-  gram_kernel<T><<<ggrid, GRAM_THREADS, 0, stream>>>(C, Y, w, pcn, coef, scal,
-                                                     Cn, lam, n, nt);
+  const int tiles = nt * (nt + 1) / 2;
+  const size_t gsm = sizeof(GramSmem<T>);
+  const dim3 ggrid(tiles, chunks, S);
+  if (n % (16 / sizeof(T)) == 0) {
+    if ((err = set_smem<gram_kernel<T, true>>(gsm)) != 0) return err;
+    gram_kernel<T, true><<<ggrid, GramTile<T>::THREADS, gsm, stream>>>(
+        Y, w, Gp, Yp, lam, n, nt, chunk_rows, chunks);
+  } else {
+    if ((err = set_smem<gram_kernel<T, false>>(gsm)) != 0) return err;
+    gram_kernel<T, false><<<ggrid, GramTile<T>::THREADS, gsm, stream>>>(
+        Y, w, Gp, Yp, lam, n, nt, chunk_rows, chunks);
+  }
+  if ((err = cma_gen::launch_status()) != 0) return err;
+  if (t_splits == 0) {
+    const size_t vsm = 2 * static_cast<size_t>(n) * sizeof(T);
+    if ((err = set_smem<vec_small_kernel<T>>(vsm)) != 0) return err;
+    vec_small_kernel<T><<<S, VEC_THREADS, vsm, stream>>>(
+        B, D, ps, coef, Yp, yw, psn, scal, n, chunks);
+  } else {
+    t_kernel<T><<<dim3(cdiv(n, T_COLS), t_splits, S), VEC_THREADS, 0,
+                  stream>>>(B, Yp, yw, tpart, n, chunks);
+    if ((err = cma_gen::launch_status()) != 0) return err;
+    const size_t wsm = static_cast<size_t>(n) * sizeof(T);
+    if ((err = set_smem<whiten_kernel<T>>(wsm)) != 0) return err;
+    whiten_kernel<T><<<dim3(psq_parts, S), W_ROWS * 32, wsm, stream>>>(
+        B, D, ps, coef, tpart, psn, psq, n, t_splits);
+    if ((err = cma_gen::launch_status()) != 0) return err;
+    paths_kernel<T><<<S, 32, 0, stream>>>(coef, psq, scal, n, psq_parts);
+  }
+  if ((err = cma_gen::launch_status()) != 0) return err;
+  const int epb = EPI_THREADS / lanes;
+  epilogue_kernel<T><<<dim3(tiles, cdiv(BT * BT, epb), S), EPI_THREADS, 0,
+                       stream>>>(C, pc, yw, coef, Gp, scal, Cn, pcn, n, nt,
+                                 chunks, lanes);
   return cma_gen::launch_status();
 }
 
 }  // namespace
 
-// coef is (S, 7) in COEF_FIELDS order; t (S, n) and scal (S, 2) are scratch.
+// coef is (S, 7) in COEF_FIELDS order.  Scratch, sized by
+// cma_gen.update_plan: Gp (S, chunks, tiles, 64, 64), Yp (S, chunks, n),
+// tpart (S, t_splits, n), psq (S, psq_parts) and scal (S, 2).  t_splits ==
+// 0 selects the one-block vector phase (psq_parts is then 1, tpart and psq
+// unused).
 #define CMA_GEN_UPDATE_API(T, SUFFIX)                                        \
   extern "C" int cma_gen_update_##SUFFIX(                                    \
       const T* C, const T* B, const T* D, const T* ps, const T* pc,          \
       const T* Y, const T* w, const T* coef, T* Cn, T* psn, T* pcn, T* yw,   \
-      T* t, T* scal, int S, int lam, int n, void* stream) {                  \
+      T* Gp, T* Yp, T* tpart, T* psq, T* scal, int S, int lam, int n,        \
+      int chunk_rows, int chunks, int t_splits, int psq_parts, int lanes,    \
+      void* stream) {                                                        \
     return launch_update<T>(C, B, D, ps, pc, Y, w, coef, Cn, psn, pcn, yw,   \
-                            t, scal, S, lam, n,                              \
+                            Gp, Yp, tpart, psq, scal, S, lam, n, chunk_rows, \
+                            chunks, t_splits, psq_parts, lanes,              \
                             static_cast<cudaStream_t>(stream));              \
   }
 

@@ -5,7 +5,8 @@
 flash_attention``: GQA attention forward with f32 online softmax, causal
 and sliding-window masks in index order, q (B, S, H, D) and k/v
 (B, S_kv, H_k, D) in bfloat16 or float32, D ∈ {32, 64, 128}; the output
-has q's dtype.  One launch.  The plain PyTorch version is
+has q's dtype.  One launch: bfloat16 runs on the tensor cores (TMA-fed
+wgmma tiles), float32 on scalar FMAs.  The plain PyTorch version is
 ``ref.flash_attention``.
 
 The wrapper takes CUDA tensors only — it checks device, dtype, shape,

@@ -61,7 +61,8 @@ def _tree_pair(tree, dtype="float32"):
     jt = jax.tree_util.tree_map(
         lambda a: jnp.asarray(a, jnp.float32).astype(jnp.dtype(dtype)), tree)
     return jt, convert.lm_params(tconfigs.smoke_config("qwen2-0.5b"),
-                                 jax.tree_util.tree_map(np.asarray, jt))
+                                 jax.tree_util.tree_map(np.asarray, jt),
+                                 device="cpu")
 
 
 def _jax_params(cfg, seed=0, noise=0.05):
@@ -205,7 +206,7 @@ def test_attend_full_batch_tp_raises():
     cfg = ta.AttnConfig(d_model=32, n_heads=4, n_kv_heads=2, head_dim=16,
                         impl="flash", batch_tp=True)
     p = convert.lm_params(tconfigs.smoke_config("qwen2-0.5b"),
-                          _attn_params(cfg, 0))
+                          _attn_params(cfg, 0), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ta.attend_full(p, cfg, torch.zeros(1, 4, 32),
                        torch.zeros(1, 4, dtype=torch.int32))
@@ -316,7 +317,7 @@ def test_lm_forward_loss_prefill_decode(arch, attn, dtype):
     jc, tc = _cfg_pair(arch, dtype, attn_impl=attn)
     p = _jax_params(jc)
     jp = jax.tree_util.tree_map(jnp.asarray, p)
-    tp = convert.lm_params(tc, p)
+    tp = convert.lm_params(tc, p, device="cpu")
     rng = np.random.default_rng(8)
     toks = rng.integers(0, jc.vocab, size=(2, 37)).astype(np.int32)
     labels = rng.integers(0, jc.vocab, size=(2, 37)).astype(np.int32)
@@ -346,7 +347,8 @@ def test_lm_forward_loss_prefill_decode(arch, attn, dtype):
         assert tuple(tcache[k].shape) == jcache[k].shape, k
         _close(tcache[k], jcache[k], tol)
     # decode from the JAX package's cache carried across
-    tcache = convert.lm_cache(jax.tree_util.tree_map(np.asarray, jcache))
+    tcache = convert.lm_cache(jax.tree_util.tree_map(np.asarray, jcache),
+                              device="cpu")
     for t in range(3):
         nxt = rng.integers(0, jc.vocab, size=(2, 1)).astype(np.int32)
         jl_, jcache = j_decode(jp, jcache, {"tokens": jnp.asarray(nxt)})
@@ -398,6 +400,18 @@ def test_registry_and_unported_families_raise():
             tlm.init_params(cfg, 0, "cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_lm_converters_require_a_device():
+    """``lm_params`` and ``lm_cache`` take the device as every other
+    converter does: leaving it out raises instead of landing on the CPU."""
+    cfg = tconfigs.smoke_config("qwen2-0.5b")
+    tree = {"w": np.zeros((2, 3), np.float32)}
+    with pytest.raises(TypeError):
+        convert.lm_params(cfg, tree)
+    with pytest.raises(TypeError):
+        convert.lm_cache(tree)
+    assert convert.lm_cache(tree, "cpu")["w"].device == torch.device("cpu")
 
 
 def _port_cfg(jcfg):

@@ -53,7 +53,8 @@ def _fitness_pair(dtype="float32"):
     jfit, jspace = jnn.make_nn_fitness(
         jc, jax.tree_util.tree_map(jnp.asarray, p),
         {k: jnp.asarray(v) for k, v in batch.items()})
-    tfit, tspace = tnn.make_nn_fitness(tc, convert.lm_params(tc, p), batch,
+    tfit, tspace = tnn.make_nn_fitness(tc, convert.lm_params(tc, p, device="cpu"),
+                                       batch,
                                        device="cpu")
     return jfit, jspace, tfit, tspace
 
@@ -77,7 +78,7 @@ def test_apply_adapter_scales_only_output_projections():
     cfg = configs.smoke_config("rwkv6-3b")
     params = convert.lm_params(cfg, jax.tree_util.tree_map(
         np.asarray, jlm.init_params(j_smoke_config("rwkv6-3b"),
-                                    jax.random.PRNGKey(1))))
+                                    jax.random.PRNGKey(1))), device="cpu")
     space = tnn.adapter_space(cfg)
     theta = torch.tensor([1.0, -2.0, 0.5, 0.3])
     p2, ls, eg = tnn._apply_adapter(space, params, theta)

@@ -74,7 +74,7 @@ def test_engine_generate_matches_jax(arch, kw):
     jtok = np.stack([r.out for r in jreqs])
     want = _jax_logits(jeng, prompts, jtok)
 
-    eng = Engine(tc, convert.lm_params(tc, p), max_len=32, device="cpu")
+    eng = Engine(tc, convert.lm_params(tc, p, device="cpu"), max_len=32, device="cpu")
     reqs, got = eng.generate([Request(prompt=q, max_new_tokens=new)
                               for q in prompts], forced=jtok,
                              return_logits=True)
