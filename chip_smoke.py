@@ -10,17 +10,20 @@ Phases, one JSON line each with its seconds; any failed check raises
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
    ``cuobjdump -sass`` must find FP64 tensor-core instructions (DMMA) in
-   the update kernel (row 6) and wgmma (HGMMA) in flash attention (row 9);
+   the sample kernels (rows 1-4, ``cma_gen_sample``; row 7,
+   ``cma_sample``) and the update kernel (row 6), and wgmma (HGMMA) in
+   flash attention (row 9);
 2. each kernel against its plain version on the card, at the shapes of
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
-   f1 instance's coefficients), a ragged one (S=3, λ=37, n=45, one
-   all-zero-weight slot) and every shape a bucketed path launches (S=1,
+   f1 instance's coefficients), two ragged ones (S=3, λ=37, n=45, one
+   all-zero-weight slot; S=2, λ=37, n=101, the sample kernels' stream plan
+   on unaligned rows) and every shape a bucketed path launches (S=1,
    λ=12, n=1000 of phase 3b; S=1, λ=12·2ᵏ, n=40 for k = 0…7 of phase 4b,
    with the f1 coefficients), float64 (max relative error ≤ 1e-12) and
    float32 (≤ 1e-4); C′ must be exactly symmetric, and a second launch of
-   the update kernel on the same inputs bit-identical (its chunks'
-   partial sums are added in a fixed order), each launch on memory that
-   was just filled with NaN.  The in-kernel RNG kernels are fed seed
+   the sample kernels (rows 1-4) and the update kernel on the same inputs
+   bit-identical (every partial sum is added in a fixed order), each
+   launch on memory that was just filled with NaN.  The in-kernel RNG kernels are fed seed
    words at and above 2³¹, and must be prefix-stable
    kernel against kernel, bit for bit, at n=1000 and n=40: the first 12
    and 192 rows of a λ=3072 call are a λ=12 and a λ=192 call (Z, Y, X
@@ -29,7 +32,8 @@ Phases, one JSON line each with its seconds; any failed check raises
    phase 6 (512 devices × 12 rows, n=1000, nine descents), one descent of
    λ = 12·2ᵏ rows (k = 0…8, n=1000), the K-Replicated groups of phase 6c
    (8 devices × 12 rows, n=1000) and of the small runs of phase 6b (n=8)
-   — in both forms (Y, and X = m + σ·Y); the rank-μ update kernel (row 8,
+   — in both forms (Y, and X = m + σ·Y), each again bit-identical on a
+   second launch into NaN-filled memory; the rank-μ update kernel (row 8,
    ``cma_rank_mu_update``) at (λ, n) = (12, 1000), (3072, 1000) and
    (192, 40), directly and through ``rank_mu_gram``'s zero-C form, C′
    exactly symmetric; float64 (≤ 1e-12) and float32 (≤ 1e-4).  The flash
@@ -63,8 +67,19 @@ Phases, one JSON line each with its seconds; any failed check raises
    eval-fused sample kernel (n=40, λ_max=3072, 50 000 evaluations: cut
    from 100 000 to keep the run within half its time limit);
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
-   in-kernel RNG eval kernel), then again with the speculative segment
-   driver (``overlap=True``), whose result must be bit-identical;
+   counter-stream Z kernel, then the eval kernel), then again with the
+   speculative segment driver (``overlap=True``), whose result must be
+   bit-identical;
+4c. float32 campaigns: ``run_ipop(dtype="float32")`` on f1 (n=40, 10 000
+   evaluations) on the card on both backends under ``auto`` and
+   ``kernel_rng``, and on the CPU once per backend (``F32_CPU``): fevals,
+   descents with their stop reasons and best − f_opt side by side.  Every
+   run ends within its last population of the budget, on the rungs
+   λ_start·2^k in order, with best − f_opt ≤ 8 float32 ulp of f_opt (the
+   bound of ``tests/test_torch_float32.py``); float32 descents may end at
+   other generations on the two devices (their stop fires on ulp-level
+   noise at the float32 floor), so those are shown, not compared; the
+   float32 kernels must have run;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -111,7 +126,8 @@ Phases, one JSON line each with its seconds; any failed check raises
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
    4, 4b, 6, 6b, 6c, 7, 7b, 7c and 8) its launches, its time, the plain version's time,
    one PyTorch call's time (none for the Z stream alone) and the least
-   time the card could take (bound) at that path's shape (row 7: at every
+   time the card could take (bound) at that path's shape (each time over
+   10 launches, or 200 where one takes under 0.2 ms; row 7: at every
    row layout of its paths; row 8, which no path launches: at phase 2's
    shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
    phase 6's layout for row 7, (3072, 1000) for row 8 and the serving
@@ -163,6 +179,9 @@ BUDGET = 50_000                           # phase 4's evaluations
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
+#: a ragged shape of the sample kernels' stream plan: odd n above one
+#: tile's width, so rows are not 16-byte aligned
+RAGGED_STREAM = dict(S=2, lam=37, n=101)
 #: the shapes the bucketed paths launch at: rung 0 of phase 3b, and every
 #: bucket 12·2ᵏ of phase 4b below λ_max (which is RESTARTS)
 BUCKETS = [(dict(MAIN, lam=LAM_START), None)] + [
@@ -226,9 +245,14 @@ NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
           max_evals=480)
 
 #: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
-#: tensor cores) for row 6's float64 gram, HGMMA (wgmma) for row 9's bf16
-#: products
-TENSOR_SASS = {"cma_gen_update": "DMMA", "flash_attention": "HGMMA"}
+#: tensor cores) for the float64 sample tiles (rows 1-4, 7) and row 6's
+#: gram, HGMMA (wgmma) for row 9's bf16 products
+TENSOR_SASS = {"cma_gen_sample": "DMMA", "cma_sample": "DMMA",
+               "cma_gen_update": "DMMA", "flash_attention": "HGMMA"}
+#: phase 4c: float32 campaigns on f1
+F32 = dict(n=40, budget=10_000)
+#: the (backend, impl) runs of phase 4c that the CPU repeats: one a backend
+F32_CPU = (("ladder", "auto"), ("bucketed", "kernel_rng"))
 
 #: operations per Z element of the counter stream, for the bound: about 100
 #: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
@@ -429,10 +453,20 @@ def lm_compare(name, got, want, dtype):
     return (*compare(name, got, want, dtype, float("inf")), worst)
 
 
+#: the integer type of each float type's bits
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
 def same_bits(name, got, want):
-    for g, w in zip(got, want):
-        if not torch.equal(g, w):
-            raise AssertionError(f"{name}: not bit-identical")
+    """Every output bit for bit (a NaN equals a NaN of the same bits)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (g.dtype == w.dtype and g.shape == w.shape
+                and torch.equal(g.view(BITS[g.dtype]), w.view(BITS[w.dtype]))):
+            differ = ~((g == w) | (torch.isnan(g) & torch.isnan(w)))
+            raise AssertionError(
+                f"{name}: output {i} not bit-identical: {int(differ.sum())} "
+                f"of {g.numel()} elements differ, {int(torch.isnan(g).sum())}"
+                f" NaN against {int(torch.isnan(w).sum())}")
 
 
 def poisoned_update(u):
@@ -452,6 +486,23 @@ def poisoned_update(u):
     return cma_gen.gen_update(**u)
 
 
+def repeat_on_poison(name, call, first):
+    """``call()`` again just after blocks of the sizes of the storages
+    behind ``first`` (the first call's outputs, still held) were filled
+    with NaN and freed, as ``poisoned_update`` does: an output element the
+    kernels leave unwritten, or a scratch element read before it is
+    written, shows as a NaN or a changed bit.  Its bits must equal
+    ``first``'s."""
+    sizes = {}
+    for t in first:
+        st = t.untyped_storage()
+        sizes[st.data_ptr()] = (st.nbytes() // t.element_size(), t.dtype)
+    poison = [torch.full((k,), float("nan"), dtype=dt, device=first[0].device)
+              for k, dt in sizes.values()]
+    del poison
+    same_bits(f"{name} (second launch on NaN)", call(), first)
+
+
 def same_result(name, got, want):
     """Two IPOPResults, bit for bit: every descent's record, the best value
     and point, the evaluations and the driver's bucket sequence."""
@@ -468,17 +519,24 @@ def same_result(name, got, want):
         raise AssertionError(f"{name}: result not bit-identical")
 
 
-def time_ms(fn, reps=10) -> float:
+def time_ms(fn, reps=10, short_reps=200, short_ms=0.2) -> float:
+    """Mean ms of a launch over ``reps`` launches after a warm-up, or over
+    ``short_reps`` where one takes under ``short_ms`` (ten such launches
+    moved by up to 55 % between calls)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+
+    def run(k):
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / k
+    ms = run(reps)
+    return run(short_reps) if ms < short_ms else ms
 
 
 def bound(flops, nbytes, dtype):
@@ -527,7 +585,8 @@ def phase_kernels(dev):
     """Every kernel against its plain version; returns the max errors."""
     errs = {k: 0.0 for k in SOURCES}
     rows = []
-    shapes = [(MAIN, None), (RESTARTS, 1), (RAGGED, None)] + BUCKETS
+    shapes = ([(MAIN, None), (RESTARTS, 1), (RAGGED, None),
+               (RAGGED_STREAM, None)] + BUCKETS)
     for shape, fid in shapes:
         for dtype in (torch.float64, torch.float32):
             S, lam, n = shape["S"], shape["lam"], shape["n"]
@@ -539,10 +598,14 @@ def phase_kernels(dev):
             want = ref.gen_sample(**a)
             errs_here["cma_gen_sample"] = compare("cma_gen_sample", got, want,
                                                   dtype)
+            repeat_on_poison("cma_gen_sample", lambda: cma_gen.gen_sample(**a),
+                             got)
             got = kernel_eval(a, sep)
             want = ref.gen_sample_eval(**a, sep=sep)
             errs_here["cma_gen_sample_eval"] = compare(
                 "cma_gen_sample_eval", got, want, dtype)
+            repeat_on_poison("cma_gen_sample_eval",
+                             lambda: kernel_eval(a, sep), got)
             u = update_inputs(S, lam, n, dtype, dev)
             got = poisoned_update(u)
             want = ref_update(u)
@@ -558,10 +621,15 @@ def phase_kernels(dev):
             want = ref.gen_sample_rng(**r, seeds=seeds, lam=lam)
             errs_here["cma_gen_sample_rng"] = compare(
                 "cma_gen_sample_rng", got, want, dtype)
+            repeat_on_poison("cma_gen_sample_rng", lambda: cma_gen.gen_sample_rng(
+                **r, seeds=seeds, lam=lam), got)
             got = cma_gen.gen_sample_rng_eval(*r.values(), seeds, lam, *sep)
             want = ref.gen_sample_rng_eval(*r.values(), seeds, lam, sep)
             errs_here["cma_gen_sample_rng_eval"] = compare(
                 "cma_gen_sample_rng_eval", got, want, dtype)
+            repeat_on_poison(
+                "cma_gen_sample_rng_eval", lambda: cma_gen.gen_sample_rng_eval(
+                    *r.values(), seeds, lam, *sep), got)
             got = cma_gen.sample_z_rng(seeds, lam, n, dtype)
             want = ref.sample_z_rng(seeds, lam, n, dtype)
             errs_here["cma_sample_z_rng"] = compare(
@@ -574,7 +642,7 @@ def phase_kernels(dev):
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1],
                              **({"repeat_bit_identical": True}
-                                if k == "cma_gen_update" else {})})
+                                if k != "cma_sample_z_rng" else {})})
     rows += strategy_kernel_checks(dev, errs)
     rows += lm_kernel_checks(dev, errs)
     bf16_worst = {name: max(r["max_elem_ratio"] for r in rows
@@ -597,19 +665,25 @@ def strategy_kernel_checks(dev, errs):
             errs[name] = max(errs[name], e[0])
         rows.append({"kernel": name, "layout": label, "shape": shape,
                      "dtype": str(dtype), "max_abs_err": e[0],
-                     "max_rel_err": e[1]})
+                     "max_rel_err": e[1],
+                     **({"repeat_bit_identical": True}
+                        if name == "cma_sample" else {})})
 
     for label, starts, n in strategy_layouts(dev):
         for dtype in (torch.float64, torch.float32):
             a = grouped_inputs(starts, n, dtype, dev, seed=len(starts))
             bdz = (a["B"], a["D"], a["Z"], starts)
-            e_y = compare("cma_sample", (cma_sample.sample_groups(*bdz),),
-                          (ref.sample_groups(*bdz),), dtype)
-            e_x = compare("cma_sample affine",
-                          (cma_sample.sample_groups(*bdz, a["m"],
-                                                    a["sigma"]),),
+            got_y = (cma_sample.sample_groups(*bdz),)
+            e_y = compare("cma_sample", got_y, (ref.sample_groups(*bdz),),
+                          dtype)
+            repeat_on_poison("cma_sample",
+                             lambda: (cma_sample.sample_groups(*bdz),), got_y)
+            got_x = (cma_sample.sample_groups(*bdz, a["m"], a["sigma"]),)
+            e_x = compare("cma_sample affine", got_x,
                           (ref.sample_groups(*bdz, a["m"], a["sigma"]),),
                           dtype)
+            repeat_on_poison("cma_sample affine", lambda: (
+                cma_sample.sample_groups(*bdz, a["m"], a["sigma"]),), got_x)
             record("cma_sample", label,
                    (max(e_y[0], e_x[0]), max(e_y[1], e_x[1])), dtype,
                    [len(starts) - 1, starts[-1], n])
@@ -761,13 +835,13 @@ def bucketed_padding(res, lam_start):
 
 
 def check_bucketed_run(name, log, launches, sample_kernel):
-    """One sample and one update launch per segment step, none of the
-    Z-operand kernels, and one pull per boundary."""
+    """One call of the in-kernel RNG sample kernel (the counter-stream Z
+    kernel, then the sample kernel) and one update launch per segment
+    step, none of the Z-operand kernels, and one pull per boundary."""
     steps = sum(sg["gens"] for sg in log["segments"])
-    others = {k: v for k, v in launches.items()
-              if k not in (sample_kernel, "cma_gen_update")}
-    if (launches[sample_kernel] != steps or launches["cma_gen_update"] != steps
-            or any(others.values())):
+    mine = (sample_kernel, "cma_sample_z_rng", "cma_gen_update")
+    others = {k: v for k, v in launches.items() if k not in mine}
+    if any(launches[k] != steps for k in mine) or any(others.values()):
         raise AssertionError(f"{name}: launches {launches} for {steps} "
                              "generations")
     if log["pulls"] != len(log["segments"]) + 1:
@@ -1015,6 +1089,59 @@ def phase_bucketed_restarts(dev):
                       "sync_s": sum(sg["sync_s"] for sg in segs_o),
                       "pulls": res_o.driver["pulls"]}})
     return launches, max(d.lam for d in res.descents)
+
+
+def phase_float32(dev):
+    """``run_ipop(dtype="float32")`` on f1 (module docstring, phase 4c):
+    per backend and tier, the card's run, beside the CPU's for
+    ``F32_CPU``."""
+    n, budget = F32["n"], F32["budget"]
+    runs = {}
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    for backend in ("ladder", "bucketed"):
+        for impl in ("auto", "kernel_rng"):
+            out = {}
+            on_cpu = (backend, impl) in F32_CPU
+            for d in (dev, "cpu") if on_cpu else (dev,):
+                fn, inst = bbob.make_fitness(1, n, 1, dtype=torch.float32,
+                                             device=d)
+                fit = bbob.fusable_fitness(inst, (1,), fn)
+                torch.cuda.synchronize()
+                cma_gen.reset_launches()
+                t0 = time.perf_counter()
+                res = ipop.run_ipop(fit, n, 5, lam_start=LAM_START,
+                                    kmax_exp=KMAX, max_evals=budget,
+                                    impl=impl, dtype="float32",
+                                    backend=backend, device=d)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                for k, v in cma_gen.LAUNCHES.items():
+                    launches[k] += v
+                f_opt = float(inst.f_opt)
+                err = res.best_f - f_opt
+                bound = 8 * float(np.spacing(np.float32(f_opt)))
+                lams = [x.lam for x in res.descents]
+                where = f"float32 {backend} {impl} on {d}"
+                if not (budget - lams[-1] < res.total_fevals <= budget):
+                    raise AssertionError(f"{where}: fevals "
+                                         f"{res.total_fevals}")
+                if not err <= bound:
+                    raise AssertionError(f"{where}: best_f - f_opt = {err} "
+                                         f"> {bound}")
+                if lams != [LAM_START << k for k in range(len(lams))]:
+                    raise AssertionError(f"{where}: population sizes {lams}")
+                out["card" if d == dev else "cpu"] = {
+                    "fevals": res.total_fevals, "best_f_minus_fopt": err,
+                    "descents": [[x.lam, len(x.gens), x.stop_reason]
+                                 for x in res.descents], "wall_s": wall}
+            runs[f"{backend}_{impl}"] = out
+    ran = ("cma_gen_sample_eval", "cma_gen_sample_rng_eval",
+           "cma_sample_z_rng", "cma_gen_update")
+    if not all(launches[k] for k in ran):
+        raise AssertionError(f"float32 runs launched {launches}")
+    emit({"phase": "float32_f1", **F32, "f_err_bound": bound, "runs": runs,
+          "launches": launches})
+    return launches
 
 
 def phase_strategies(dev):
@@ -1769,6 +1896,7 @@ def main() -> int:
     launches["bucketed_rng_f1_restarts"], widest = timed(
         "4b_bucketed_restarts", phase_bucketed_restarts, dev)
     PATHS["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
+    launches["float32_f1"] = timed("4c_float32", phase_float32, dev)
     launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
                                             dev)
     launches["strategies_small_card_vs_cpu"] = timed(

@@ -15,6 +15,7 @@ import numpy as np
 
 from repro_torch.core import bucketed as bucketed_mod
 from repro_torch.core import ladder as ladder_mod
+from repro_torch.kernels import ops
 
 
 class DescentTrace(NamedTuple):
@@ -79,20 +80,24 @@ def _result_from_ladder(engine: ladder_mod.LadderEngine,
 
 def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
              kmax_exp: int = 8, max_evals: int = 200_000, domain=(-5.0, 5.0),
-             sigma0_frac: float = 0.25, impl: str = "auto",
+             sigma0_frac: float = 0.25, chunk: int = 32, impl: str = "auto",
              dtype: str = "float64", total_gens: int | None = None,
-             backend: str = "ladder", device=None) -> IPOPResult:
+             backend: str = "ladder", *, device=None) -> IPOPResult:
     """Paper Alg. 2 with multiplicative factor 2 and K_max = 2^kmax_exp.
 
+    The parameters the two packages share keep the JAX package's order.
     ``backend="ladder"`` runs the whole ladder at λ_max padding;
     ``backend="bucketed"`` drives it through the rung-bucketed segments
     (``core/bucketed.py``: work proportional to the live rung, sized by
     the driver, so ``total_gens`` does not apply).  ``impl`` picks the
-    sampling tier on both (``kernels/ops.py``).  ``key`` is an int seed or
-    a (2,) key tensor (``core/prng.py``).  ``device=None`` runs on the
-    CUDA device and raises without one.  The JAX package's other backends
-    (``hostloop``, ``mesh``, ``service``) raise ``NotImplementedError``
-    (ROADMAP.md, queue A)."""
+    sampling tier on both (``kernels/ops.py``) and is validated first, for
+    every backend.  ``chunk`` only sizes the host loop of
+    ``backend="hostloop"``.  ``key`` is an int seed or a (2,) key tensor
+    (``core/prng.py``).  ``device=None`` runs on the CUDA device and raises
+    without one.  The JAX package's other backends (``hostloop``, ``mesh``,
+    ``service``) raise ``NotImplementedError`` naming their ROADMAP.md
+    queue A item."""
+    ops.validate_impl(impl)
     if backend == "bucketed":
         if total_gens is not None:
             raise ValueError("total_gens only applies to backend='ladder'; "
@@ -104,7 +109,11 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
         carry, trace, log = bucketed_mod.run_bucketed_single(
             engine_b, key, fitness_fn)
         return _result_from_ladder(engine_b.full, carry, trace, log)
-    if backend in ("hostloop", "mesh", "service"):
+    if backend == "hostloop":
+        raise NotImplementedError(
+            "backend='hostloop' is not ported; 'ladder' and 'bucketed' are "
+            "(ROADMAP.md, queue A item 7)")
+    if backend in ("mesh", "service"):
         raise NotImplementedError(
             f"backend={backend!r} is not ported; 'ladder' and 'bucketed' "
             "are (ROADMAP.md, queue A items 9-11)")

@@ -73,16 +73,17 @@ def _slots_fused_update(cfg: CMAConfig, params_k, states: cmaes.CMAState,
     made first and handed to ``fused_generation``."""
     if ops.validate_impl(impl) != "kernel_rng":
         Z = cmaes.sample_z(kgs, cfg.lam_max, cfg.n, cfg.tdtype)
-        return fused_generation(cfg, params_k, states, Z, fitness_fn, eigen)
+        return fused_generation(cfg, params_k, states, Z, fitness_fn, eigen,
+                                impl)
     args = (states.m, states.sigma, states.B, states.D, kgs, cfg.lam_max)
     sep = getattr(fitness_fn, "sep", None)
     if sep is not None:
-        Y, F = ops.gen_sample_rng_eval(*args, sep)
+        Y, F = ops.gen_sample_rng_eval(*args, sep, impl=impl)
         return _generation_from_sample(cfg, params_k, states, Y, None, F,
-                                       eigen)
-    Y, X = ops.gen_sample_rng(*args)
+                                       eigen, impl)
+    Y, X = ops.gen_sample_rng(*args, impl=impl)
     return _generation_from_sample(cfg, params_k, states, Y, X,
-                                   _evaluate(fitness_fn, X), eigen)
+                                   _evaluate(fitness_fn, X), eigen, impl)
 
 
 def _evaluate(fitness_fn: Callable, X: torch.Tensor) -> torch.Tensor:
@@ -91,26 +92,28 @@ def _evaluate(fitness_fn: Callable, X: torch.Tensor) -> torch.Tensor:
 
 
 def fused_generation(cfg: CMAConfig, params_k, states: cmaes.CMAState,
-                     Z: torch.Tensor, fitness_fn: Callable,
-                     eigen: str) -> cmaes.CMAState:
+                     Z: torch.Tensor, fitness_fn: Callable, eigen: str,
+                     impl: str = "auto") -> cmaes.CMAState:
     """One generation over all slots from a given draw Z (S, λ_max, n): the
-    sample kernel (eval-fused when ``fitness_fn`` carries separable
-    coefficients), then ``_generation_from_sample``."""
+    sample op (eval-fused when ``fitness_fn`` carries separable
+    coefficients), then ``_generation_from_sample``; ``impl`` is the tier
+    of both ops (``kernels/ops.py``)."""
     sep = getattr(fitness_fn, "sep", None)
     if sep is not None:
         Y, F = ops.gen_sample_eval(states.m, states.sigma, states.B, states.D,
-                                   Z, sep)
+                                   Z, sep, impl=impl)
         return _generation_from_sample(cfg, params_k, states, Y, None, F,
-                                       eigen)
-    Y, X = ops.gen_sample(states.m, states.sigma, states.B, states.D, Z)
+                                       eigen, impl)
+    Y, X = ops.gen_sample(states.m, states.sigma, states.B, states.D, Z,
+                          impl=impl)
     return _generation_from_sample(cfg, params_k, states, Y, X,
-                                   _evaluate(fitness_fn, X), eigen)
+                                   _evaluate(fitness_fn, X), eigen, impl)
 
 
 def _generation_from_sample(cfg: CMAConfig, params_k,
                             states: cmaes.CMAState, Y: torch.Tensor,
                             X: Optional[torch.Tensor], F: torch.Tensor,
-                            eigen: str) -> cmaes.CMAState:
+                            eigen: str, impl: str = "auto") -> cmaes.CMAState:
     """The rest of a generation once the population is sampled (X is None
     on the eval-fused path): rank weights, the update kernel and the O(n)
     epilogue; stopped slots keep their state."""
@@ -125,7 +128,7 @@ def _generation_from_sample(cfg: CMAConfig, params_k,
             F, X, params_k, lam_max)
     C_new, ps_new, pc_new, y_w = ops.gen_update(
         states.C, states.B, states.D, states.p_sigma, states.p_c, Y, W,
-        cmaes.gen_coef(params_k, states))
+        cmaes.gen_coef(params_k, states), impl=impl)
     new = cmaes._finish_update(cfg, params_k, states, f_sorted, x_best,
                                n_evals, C_new, ps_new, pc_new, y_w, eigen)
     return cmaes.tree_select(states.stop, states, new)

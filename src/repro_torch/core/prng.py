@@ -21,12 +21,14 @@ devices.  A key is an int64 tensor whose last axis has size 2; every
 function here broadcasts over leading key axes, so a batch of keys (the
 slot axis, the row axis) is one call.
 
-Key words, random bits and uniforms agree with jax bit for bit.  float64
-normals agree to 3 ulp (all but a few in 10⁵ bit for bit): ``erf_inv`` and
-the ``log1p`` inside it are XLA's float64 polynomials with XLA's fused
-multiply-adds, and only the ``log`` of the large-argument branch is the
-device's own (tests/test_torch_prng.py).  float32 ``normal`` is not ported:
-nothing on the campaign path draws it.
+Key words, random bits and uniforms agree with jax bit for bit.  Normals
+agree to 3 ulp in both types: ``erf_inv`` and the ``log1p`` inside it are
+XLA's polynomials with XLA's fused multiply-adds (float64: Giles' three
+branches; float32: his two, on w < 5 and w ≥ 5), and only the ``log`` of
+the large-argument branch is the device's own.  float64 normals match bit
+for bit but for a few in 10⁵, float32 ones but for about 5 in 10³ (XLA's
+CPU ``log`` in float32 is its own polynomial, 1 ulp from torch's in ~7 %
+of the arguments of that branch); tests/test_torch_prng.py.
 """
 from __future__ import annotations
 
@@ -198,7 +200,8 @@ def _horner(x: torch.Tensor, coefs) -> torch.Tensor:
 
 
 def log1p_xla(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float64 ``log1p``: the rational form for small |x|, else
+    """XLA's ``log1p`` (float64, and float32 on the CPU): the rational form
+    for small |x|, its coefficients rounded to x's type, else
     ``log(1 + x)``."""
     x2 = x * x
     small = x + (-0.5 * x2 + (x * x2) * (_horner(x, _LOG1P_NUM)
@@ -234,10 +237,43 @@ def erf_inv_f64(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+# XLA's float32 erf_inv (Giles' single-precision approximation): one
+# polynomial in w − 2.5 for w < 5 and one in √w − 3 above, w = −log1p(−x²),
+# highest-order coefficient first.
+_ERFINV32_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV32_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv``, operation for operation."""
+    w = -log1p_xla(-x * x)
+    lt5 = w < 5.0
+
+    def coef(i):
+        return torch.where(lt5, torch.full_like(x, _ERFINV32_LT_5[i]),
+                           torch.full_like(x, _ERFINV32_GE_5[i]))
+
+    w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+    p = coef(0)
+    for i in range(1, len(_ERFINV32_LT_5)):
+        p = torch.addcmul(coef(i), p, w)
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
 def normal(key: torch.Tensor, shape, dtype=torch.float64) -> torch.Tensor:
-    """``jax.random.normal(key, shape, dtype)`` for float64."""
-    if dtype != torch.float64:
-        raise NotImplementedError(
-            "only float64 normals are ported (ROADMAP.md, queue A item 3)")
-    u = uniform(key, shape, dtype, math.nextafter(-1.0, 0.0), 1.0)
-    return math.sqrt(2.0) * erf_inv_f64(u)
+    """``jax.random.normal(key, shape, dtype)`` for float64 and float32:
+    √2·erf_inv(u), u uniform on (nextafter(−1, 0), 1) in ``dtype``."""
+    if dtype == torch.float64:
+        erf_inv = erf_inv_f64
+    elif dtype == torch.float32:
+        erf_inv = erf_inv_f32
+    else:
+        raise ValueError(f"unsupported dtype {dtype}")
+    lo = float(torch.nextafter(torch.tensor(-1.0, dtype=dtype),
+                               torch.tensor(0.0, dtype=dtype)))
+    u = uniform(key, shape, dtype, lo, 1.0)
+    return math.sqrt(2.0) * erf_inv(u)

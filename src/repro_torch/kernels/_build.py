@@ -9,9 +9,11 @@ and an unchanged one is reused.  All missing libraries are compiled at
 once, one ``nvcc`` process per source.  Nothing here runs at import.
 
 The wrappers (``cma_gen.py``, ``cma_sample.py``, ``cma_update.py``,
-``flash_attention.py``, ``rwkv6_wkv.py``) share the rest: ``function`` binds an entry point, ``check`` refuses a tensor the
-kernel does not take, and ``launch`` calls it on the current stream,
-raises on a launch error and counts the launch in ``LAUNCHES``.
+``flash_attention.py``, ``rwkv6_wkv.py``) share the rest: ``function``
+binds an entry point, ``check`` refuses a tensor the kernel does not take,
+and ``launch`` calls it on the current stream, raises on a launch error
+and counts the launch in ``LAUNCHES``.  A source's headers (``*.cuh``)
+are part of every hash, so an edited header rebuilds every library.
 """
 from __future__ import annotations
 
@@ -128,10 +130,10 @@ def function(lib_name: str, fn_name: str, dtype: torch.dtype, argtypes):
 
 
 def check(name: str, t: torch.Tensor, shape, dtype, device) -> int:
-    """``t``'s pointer, once it is a contiguous CUDA tensor of ``shape`` and
-    ``dtype`` on ``device``; raises otherwise."""
-    if (t.device == device and t.dtype == dtype and t.shape == tuple(shape)
-            and t.is_contiguous()):
+    """``t``'s pointer, once it is a contiguous CUDA tensor of ``shape`` (a
+    tuple) and ``dtype`` on ``device``; raises otherwise."""
+    if (t.is_cuda and t.get_device() == device.index and t.dtype == dtype
+            and t.shape == shape and t.is_contiguous()):
         return t.data_ptr()
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
@@ -148,11 +150,12 @@ def check(name: str, t: torch.Tensor, shape, dtype, device) -> int:
     return t.data_ptr()
 
 
-def launch(fn, label: str, device, *args) -> None:
+def launch(fn, label, device, *args) -> None:
     """Call ``fn(*args, stream)`` on ``device``'s current stream, with
     ``device`` current; raise on the launch error it returns, else count
-    the launch under ``label``."""
-    current = torch.cuda.current_device()
+    the launch under ``label``, or under each label of a tuple when the
+    call launches several kernels of the table."""
+    current = torch._C._cuda_getDevice()
     index = current if device.index is None else device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     if index == current:
@@ -160,6 +163,8 @@ def launch(fn, label: str, device, *args) -> None:
     else:
         with torch.cuda.device(index):
             err = fn(*args, stream)
+    labels = (label,) if isinstance(label, str) else label
     if err != 0:
-        raise RuntimeError(f"{label}: CUDA launch error {err}")
-    LAUNCHES[label] += 1
+        raise RuntimeError(f"{'+'.join(labels)}: CUDA launch error {err}")
+    for name in labels:
+        LAUNCHES[name] += 1

@@ -1,24 +1,30 @@
 """Wrappers of the hand-written CUDA generation kernels (``csrc/*.cu``).
 
 * ``gen_sample`` — replaces ``repro/kernels/cma_gen.py::cma_gen_sample``:
-  (Y, X) = (Z·diag(D)·Bᵀ, m + σ·Y), one launch.
+  (Y, X) = (Z·diag(D)·Bᵀ, m + σ·Y), one launch of the plan
+  ``sample_plan.py`` picks (FP64 tensor-core tiles, or the stream plan for
+  few rows a slot).
 * ``gen_sample_eval`` — replaces ``cma_gen_sample_eval``: (Y, F) with the
-  separable fitness in the epilogue, X never written; two launches (tile
-  GEMM with per-tile row partials, then a fixed-order row reduce).
+  separable fitness in the epilogue, X never written; one launch where one
+  block spans all n columns (n ≤ 64), else two (per-block row partials,
+  then a fixed-order row reduce).
 * ``gen_update`` — replaces ``cma_gen_update``: (C′, p_σ′, p_c′, y_w); a
   gram pass split over tiles and chunks of population rows (FP64 tensor
   cores in float64), the vector phase (one launch up to n = 128, three
   above), then a fixed-order sum of the chunks with the C′ epilogue.  The
   split is ``update_plan``'s; the call counts as one launch.
 * ``gen_sample_rng`` / ``gen_sample_rng_eval`` — replace
-  ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the two sample
-  kernels with Z drawn inside the kernel from per-slot seeds
-  (``csrc/threefry.cuh``); Z is never read or written.
+  ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the counter stream
+  of per-slot seeds (``csrc/threefry.cuh``) drawn once into scratch by the
+  Z-only kernel, then the two sample kernels above; one call, counted under
+  both kernels' labels.
 * ``sample_z_rng`` — replaces ``cma_sample_z_rng``: the counter stream Z
   alone, one launch.
 
-The RNG wrappers take ``seeds`` (S, 2) as uint32 words held in int64, and
-``lam`` and ``n`` below 2¹⁶ (the counter is ``(row << 16) | col``).
+The RNG wrappers take ``seeds`` (S, 2) as uint32 words held in int64 (the
+kernels read the low 32 bits, so a word's negative twin gives the same
+stream), and ``lam`` and ``n`` below 2¹⁶ (the counter is
+``(row << 16) | col``).
 
 The design notes (what bounds each kernel and what the design does about
 it) head each source file.  The plain PyTorch versions are in
@@ -35,7 +41,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sample_plan
 from repro_torch.kernels._build import CMA_DTYPES as _DTYPES
 from repro_torch.kernels._build import check as _check
 from repro_torch.kernels._build import launch as _launch
@@ -49,14 +55,15 @@ reset_launches = _build.reset_launches
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    ("cma_gen_sample", "cma_gen_sample"): [_P] * 7 + [_I] * 3 + [_P],
-    ("cma_gen_sample", "cma_gen_sample_eval"): [_P] * 13 + [_I] * 3 + [_P],
+    ("cma_gen_sample", "cma_gen_sample"): [_P] * 8 + [_I] * 5 + [_P],
+    ("cma_gen_sample", "cma_gen_sample_eval"): [_P] * 14 + [_I] * 6 + [_P],
     ("cma_gen_update", "cma_gen_update"): [_P] * 17 + [_I] * 8 + [_P],
-    ("cma_gen_sample", "cma_gen_sample_rng"): [_P] * 7 + [_I] * 3 + [_P],
-    ("cma_gen_sample", "cma_gen_sample_rng_eval"): [_P] * 13 + [_I] * 3 + [_P],
+    ("cma_gen_sample", "cma_gen_sample_rng"): [_P] * 9 + [_I] * 6 + [_P],
+    ("cma_gen_sample", "cma_gen_sample_rng_eval"): [_P] * 15 + [_I] * 6
+    + [_P],
     ("cma_gen_sample", "cma_sample_z_rng"): [_P] * 2 + [_I] * 3 + [_P],
-    ("cma_gen_sample", "cma_gen_sample_tile_cols"): [],
 }
+_LIB = "cma_gen_sample"
 
 
 def _fn(lib_name: str, fn_name: str, dtype: torch.dtype):
@@ -78,10 +85,10 @@ def _sample_operands(m, sigma, B, D, Z):
     return (S, lam, n), dt, dev, ptrs
 
 
-def _seed_words(seeds: torch.Tensor, lam: int, n: int) -> torch.Tensor:
-    """Checks the counter's range, then ``seeds`` (S, 2) int64 on CUDA;
-    returns the words as int32 with the uint32 bit patterns the kernel
-    reads (a word ≥ 2³¹ wraps to a negative int32)."""
+def _seed_words(seeds: torch.Tensor, S: int, lam: int, n: int, device) -> int:
+    """Checks the counter's range, then ``seeds`` (S, 2) int64 on CUDA
+    ``device``; returns its pointer (the kernels read each word's low 32
+    bits)."""
     if not (0 < lam < RNG_MAX_DIM and 0 < n < RNG_MAX_DIM):
         raise ValueError(f"lam={lam} and n={n} must lie in [1, 2^16): the "
                          "counter is (row << 16) | col")
@@ -91,8 +98,7 @@ def _seed_words(seeds: torch.Tensor, lam: int, n: int) -> torch.Tensor:
     if seeds.dtype != torch.int64 or seeds.dim() != 2 or seeds.shape[1] != 2:
         raise ValueError("seeds must be (S, 2) int64-held uint32 words, got "
                          f"{tuple(seeds.shape)} {seeds.dtype}")
-    w = seeds & 0xFFFFFFFF
-    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32).contiguous()
+    return _check("seeds", seeds, (S, 2), torch.int64, device)
 
 
 def _rng_operands(m, sigma, B, D, seeds, lam: int):
@@ -100,23 +106,43 @@ def _rng_operands(m, sigma, B, D, seeds, lam: int):
         raise ValueError("B must be (S, n, n) float32 or float64")
     S, n, _ = B.shape
     lam = int(lam)
-    words = _seed_words(seeds, lam, n)
     dt, dev = B.dtype, B.device
+    seed_ptr = _seed_words(seeds, S, lam, n, dev)
     ptrs = [_check("m", m, (S, n), dt, dev), _check("sigma", sigma, (S,), dt, dev),
             _check("B", B, (S, n, n), dt, dev), _check("D", D, (S, n), dt, dev),
-            _check("seeds", words, (S, 2), torch.int32, dev)]
-    # the caller holds ``words`` until the launch: freed earlier, its block
-    # could be handed to an output allocated before the kernel runs
-    return (S, lam, n), dt, dev, ptrs, words
+            seed_ptr]
+    return (S, lam, n), dt, dev, ptrs
+
+
+def _sep_operands(scale, shift, fopt, mode, valid, S, n, dt, dev):
+    return [_check("scale", scale, (S, n), dt, dev),
+            _check("shift", shift, (S, n), dt, dev),
+            _check("fopt", fopt, (S,), dt, dev),
+            _check("mode", mode, (S,), torch.int32, dev),
+            _check("valid", valid, (S,), torch.int32, dev)]
+
+
+def _f_outputs(S, lam, dt, dev, partials: int):
+    """F (S, λ) and, where the plan has them, the eval partials' scratch."""
+    F = torch.empty((S, lam), dtype=dt, device=dev)
+    Fpart = (torch.empty(partials * S * lam, dtype=dt, device=dev)
+             if partials else None)
+    return F, Fpart
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def gen_sample(m, sigma, B, D, Z):
     """Y, X (S, λ, n) from m (S,n), sigma (S,), B (S,n,n), D (S,n), Z (S,λ,n)."""
     (S, lam, n), dt, dev, ptrs = _sample_operands(m, sigma, B, D, Z)
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
     Y = torch.empty_like(Z)
     X = torch.empty_like(Z)
-    _launch(_fn("cma_gen_sample", "cma_gen_sample", dt), "cma_gen_sample",
-            dev, *ptrs, Y.data_ptr(), X.data_ptr(), S, lam, n)
+    _launch(_fn(_LIB, "cma_gen_sample", dt), "cma_gen_sample", dev, *ptrs,
+            lay.tiles.data_ptr(), Y.data_ptr(), X.data_ptr(), lay.ntiles,
+            S * lam, n, lay.plan.code, lay.tile_rows)
     return Y, X
 
 
@@ -125,33 +151,29 @@ def gen_sample_eval(m, sigma, B, D, Z, scale, shift, fopt, mode, valid):
     ``shift`` (S, n), ``fopt`` (S,) in the state dtype, ``mode`` and
     ``valid`` (S,) int32."""
     (S, lam, n), dt, dev, ptrs = _sample_operands(m, sigma, B, D, Z)
-    ptrs += [_check("scale", scale, (S, n), dt, dev),
-             _check("shift", shift, (S, n), dt, dev),
-             _check("fopt", fopt, (S,), dt, dev),
-             _check("mode", mode, (S,), torch.int32, dev),
-             _check("valid", valid, (S,), torch.int32, dev)]
+    ptrs += _sep_operands(scale, shift, fopt, mode, valid, S, n, dt, dev)
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
     Y = torch.empty_like(Z)
-    F = torch.empty((S, lam), dtype=dt, device=dev)
-    tile_cols = _fn("cma_gen_sample", "cma_gen_sample_tile_cols", dt)()
-    ntiles = -(-n // tile_cols)
-    Fpart = torch.empty((S, ntiles, lam), dtype=dt, device=dev)
-    _launch(_fn("cma_gen_sample", "cma_gen_sample_eval", dt),
-            "cma_gen_sample_eval", dev, *ptrs, Y.data_ptr(), F.data_ptr(),
-            Fpart.data_ptr(), S, lam, n)
+    F, Fpart = _f_outputs(S, lam, dt, dev, lay.plan.eval_partials)
+    _launch(_fn(_LIB, "cma_gen_sample_eval", dt), "cma_gen_sample_eval", dev,
+            *ptrs, lay.tiles.data_ptr(), Y.data_ptr(), F.data_ptr(),
+            _ptr(Fpart), lay.ntiles, S * lam, n, lam, lay.plan.code,
+            lay.tile_rows)
     return Y, F
 
 
 def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
     """Y, X (S, λ, n) from m (S,n), sigma (S,), B (S,n,n), D (S,n) and the
-    counter stream of ``seeds`` (S, 2); Z is drawn inside the kernel."""
-    (S, lam, n), dt, dev, ptrs, words = _rng_operands(m, sigma, B, D, seeds,
-                                                      lam)
-    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
-    X = torch.empty_like(Y)
-    _launch(_fn("cma_gen_sample", "cma_gen_sample_rng", dt),
-            "cma_gen_sample_rng", dev, *ptrs, Y.data_ptr(), X.data_ptr(), S,
-            lam, n)
-    del words
+    counter stream of ``seeds`` (S, 2), drawn on the card first."""
+    (S, lam, n), dt, dev, ptrs = _rng_operands(m, sigma, B, D, seeds, lam)
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
+    Zs = torch.empty((S, lam, n), dtype=dt, device=dev)
+    Y = torch.empty_like(Zs)
+    X = torch.empty_like(Zs)
+    _launch(_fn(_LIB, "cma_gen_sample_rng", dt),
+            ("cma_sample_z_rng", "cma_gen_sample_rng"), dev, *ptrs,
+            Zs.data_ptr(), lay.tiles.data_ptr(), Y.data_ptr(), X.data_ptr(),
+            lay.ntiles, S, lam, n, lay.plan.code, lay.tile_rows)
     return Y, X
 
 
@@ -159,35 +181,30 @@ def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, scale, shift, fopt,
                         mode, valid):
     """Y (S, λ, n) and F (S, λ) from the counter stream of ``seeds`` (S, 2)
     for a separable fid laid out as in ``gen_sample_eval``."""
-    (S, lam, n), dt, dev, ptrs, words = _rng_operands(m, sigma, B, D, seeds,
-                                                      lam)
-    ptrs += [_check("scale", scale, (S, n), dt, dev),
-             _check("shift", shift, (S, n), dt, dev),
-             _check("fopt", fopt, (S,), dt, dev),
-             _check("mode", mode, (S,), torch.int32, dev),
-             _check("valid", valid, (S,), torch.int32, dev)]
-    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
-    F = torch.empty((S, lam), dtype=dt, device=dev)
-    tile_cols = _fn("cma_gen_sample", "cma_gen_sample_tile_cols", dt)()
-    Fpart = torch.empty((S, -(-n // tile_cols), lam), dtype=dt, device=dev)
-    _launch(_fn("cma_gen_sample", "cma_gen_sample_rng_eval", dt),
-            "cma_gen_sample_rng_eval", dev, *ptrs, Y.data_ptr(), F.data_ptr(),
-            Fpart.data_ptr(), S, lam, n)
-    del words
+    (S, lam, n), dt, dev, ptrs = _rng_operands(m, sigma, B, D, seeds, lam)
+    sep = _sep_operands(scale, shift, fopt, mode, valid, S, n, dt, dev)
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
+    Zs = torch.empty((S, lam, n), dtype=dt, device=dev)
+    Y = torch.empty_like(Zs)
+    F, Fpart = _f_outputs(S, lam, dt, dev, lay.plan.eval_partials)
+    _launch(_fn(_LIB, "cma_gen_sample_rng_eval", dt),
+            ("cma_sample_z_rng", "cma_gen_sample_rng_eval"), dev, *ptrs,
+            Zs.data_ptr(), *sep, lay.tiles.data_ptr(), Y.data_ptr(),
+            F.data_ptr(), _ptr(Fpart), lay.ntiles, S, lam, n, lay.plan.code,
+            lay.tile_rows)
     return Y, F
 
 
 def sample_z_rng(seeds, lam: int, n: int, dtype=torch.float64):
     """The counter stream Z (S, λ, n) of ``seeds`` (S, 2) in ``dtype``."""
     lam, n = int(lam), int(n)
-    words = _seed_words(seeds, lam, n)
+    S = seeds.shape[0] if seeds.dim() == 2 else -1
+    ptr = _seed_words(seeds, S, lam, n, seeds.device)
     if dtype not in _DTYPES:
         raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-    S = words.shape[0]
-    Z = torch.empty((S, lam, n), dtype=dtype, device=words.device)
-    _launch(_fn("cma_gen_sample", "cma_sample_z_rng", dtype),
-            "cma_sample_z_rng", words.device, words.data_ptr(), Z.data_ptr(),
-            S, lam, n)
+    Z = torch.empty((S, lam, n), dtype=dtype, device=seeds.device)
+    _launch(_fn(_LIB, "cma_sample_z_rng", dtype), "cma_sample_z_rng",
+            seeds.device, ptr, Z.data_ptr(), S, lam, n)
     return Z
 
 

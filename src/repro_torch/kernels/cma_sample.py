@@ -4,7 +4,9 @@
 X = m + σ·(Z·diag D)·Bᵀ, or Y = (Z·diag D)·Bᵀ without m and σ (the
 ``sample_transform`` form), over a population whose contiguous row ranges
 belong to different state slots (the descents of the strategies path).
-One launch.  The plain PyTorch version is ``ref.sample_groups``.
+One launch of the plan ``sample_plan.py`` picks from the largest group
+(the design it shares with rows 1-4 is ``csrc/sample_gemm.cuh``).  The
+plain PyTorch version is ``ref.sample_groups``.
 
 The wrapper takes CUDA tensors only — it checks device, dtype, shape and
 contiguity and raises, it never falls back — and launches on the current
@@ -14,14 +16,14 @@ in ``_build.LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, sample_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SAMPLE_ARGS = [_P] * 7 + [_I] * 2 + [_P]
+_SAMPLE_ARGS = [_P] * 7 + [_I] * 5 + [_P]
+_LIB = "cma_sample"
 
 
 def check_starts(starts, G: int, R: int) -> tuple:
@@ -32,18 +34,6 @@ def check_starts(starts, G: int, R: int) -> tuple:
         raise ValueError(f"starts {starts} must run from 0 to {R} in {G} "
                          "non-decreasing steps")
     return starts
-
-
-@functools.lru_cache(maxsize=64)
-def _tile_table(starts: tuple, tile_rows: int, device: torch.device):
-    """(group, first row, end row) of every row tile, at most ``tile_rows``
-    rows each and none crossing a group boundary: (ntiles, 3) int32 on
-    ``device``, made once per layout."""
-    rows = [(g, r, min(r + tile_rows, b))
-            for g, (a, b) in enumerate(zip(starts, starts[1:]))
-            for r in range(a, b, tile_rows)]
-    return torch.tensor(rows, dtype=torch.int32,
-                        device=device).reshape(-1, 3)
 
 
 def sample_groups(B, D, Z, starts, m=None, sigma=None):
@@ -69,13 +59,12 @@ def sample_groups(B, D, Z, starts, m=None, sigma=None):
             _build.check("B", B, (G, n, n), dt, dev),
             _build.check("D", D, (G, n), dt, dev),
             _build.check("Z", Z, (R, n), dt, dev)]
-    fn = _build.function("cma_sample", "cma_sample", dt, _SAMPLE_ARGS)
-    tile_rows = _build.function("cma_sample", "cma_sample_tile_rows", dt,
-                                [])()
-    tiles = _tile_table(starts, tile_rows, dev)
     X = torch.empty_like(Z)
     if R == 0:
         return X
-    _build.launch(fn, "cma_sample", dev, *ptrs, tiles.data_ptr(),
-                  X.data_ptr(), tiles.shape[0], n)
+    lay = sample_plan.layout(_LIB, starts, n, dt, dev)
+    _build.launch(_build.function(_LIB, "cma_sample", dt, _SAMPLE_ARGS),
+                  "cma_sample", dev, *ptrs, lay.tiles.data_ptr(),
+                  X.data_ptr(), lay.ntiles, R, n, lay.plan.code,
+                  lay.tile_rows)
     return X

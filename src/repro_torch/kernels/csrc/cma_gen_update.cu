@@ -54,6 +54,12 @@
 
 namespace {
 
+using cma_gen::cp_async;
+using cma_gen::cp_async_commit;
+using cma_gen::cp_async_wait;
+using cma_gen::dmma;
+using cma_gen::DMMA_K;
+
 enum Coef { C_SIGMA = 0, MU_EFF, C_C, C_1, C_MU, CHI_N, GEN1, N_COEF };
 
 // These constants are mirrored by cma_gen.update_plan.
@@ -91,46 +97,6 @@ __device__ __forceinline__ void tile_of(int tile, int nt, int& bi, int& bj) {
     ++bi;
   }
   bj = bi + tile;
-}
-
-// BYTES (4, 8 or 16) global -> shared, zero-filled where !ok.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = ok ? BYTES : 0;
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// d += a * b for one 16 x 8 x 16 FP64 tensor-core tile (an sm_90 shape).
-// Fragments, g = lane / 4, t = lane % 4:
-//   a[i] = A[g + 8 (i % 2)][t + 4 (i / 2)], b[i] = B[t + 4 i][g],
-//   d[i] = D[g + 8 (i / 2)][2 t + i % 2].
-constexpr int DMMA_K = 16;
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[8],
-                                     const double (&b)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
-      "{%0, %1, %2, %3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
 // Lists the rows of [r0, r1) with non-zero weight, ascending, into sm.idx
@@ -585,23 +551,6 @@ __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
   if (i == j) pcn[o + i] = pi;
 }
 
-// Raises a kernel's dynamic shared-memory limit past the default 48 KB,
-// once per device and size.
-template <auto Kernel>
-int set_smem(size_t bytes) {
-  static size_t done[64] = {};
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 64 && done[dev] >= bytes) return 0;
-  err = cudaFuncSetAttribute(Kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess && dev < 64) done[dev] = bytes;
-  return static_cast<int>(err);
-}
-
 template <typename T>
 int launch_update(const T* C, const T* B, const T* D, const T* ps,
                   const T* pc, const T* Y, const T* w, const T* coef, T* Cn,
@@ -610,6 +559,7 @@ int launch_update(const T* C, const T* B, const T* D, const T* ps,
                   int t_splits, int psq_parts, int lanes,
                   cudaStream_t stream) {
   using cma_gen::cdiv;
+  using cma_gen::set_smem;
   if (chunk_rows > MAX_CHUNK_ROWS || chunk_rows % BK || chunks < 1 ||
       static_cast<long long>(chunks) * chunk_rows < lam || lanes < 1 ||
       EPI_THREADS % lanes ||

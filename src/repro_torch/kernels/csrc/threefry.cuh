@@ -1,6 +1,5 @@
-// The counter stream of the in-kernel RNG tier, shared by every kernel that
-// draws Z (cma_gen_sample.cu: the sample kernels' RNG stage and the
-// Z-only kernel), so that all of them draw the same numbers.
+// The counter stream of the in-kernel RNG tier, drawn by z_rng_kernel
+// (cma_gen_sample.cu), which the RNG sample calls launch first.
 //
 // Port of repro/kernels/ref.py:80-136 (_threefry2x32, _bits_to_unit,
 // threefry_normal): Z[s, r, c] = sqrt(-2 log1p(-u1)) cos(2 pi u2), where

@@ -75,9 +75,9 @@ def _kernel(impl: str, t: torch.Tensor) -> bool:
     return validate_impl(impl) in KERNEL_TIERS and _on_cuda(t)
 
 
-def gen_sample(m, sigma, B, D, Z):
+def gen_sample(m, sigma, B, D, Z, impl: str = "auto"):
     """Fused sampling (Y, X), slot-batched (see ``ref.gen_sample``)."""
-    if _on_cuda(Z):
+    if _kernel(impl, Z):
         return cma_gen.gen_sample(m, sigma, B, D, Z)
     return ref.gen_sample(m, sigma, B, D, Z)
 
@@ -103,26 +103,27 @@ def slot_fitness(fitness_fn, S: int, dtype):
     return FusableEval(fitness_fn.fn, slot_sep(sep, S, dtype))
 
 
-def gen_sample_eval(m, sigma, B, D, Z, sep):
+def gen_sample_eval(m, sigma, B, D, Z, sep, impl: str = "auto"):
     """Eval-fused sampling (Y, F) for a separable fid: X is never written.
     On the card ``sep`` must be laid out per slot (``slot_sep``); the plain
     version also takes shared leaves."""
-    if _on_cuda(Z):
+    if _kernel(impl, Z):
         return cma_gen.gen_sample_eval(m, sigma, B, D, Z, *sep)
     return ref.gen_sample_eval(m, sigma, B, D, Z, sep)
 
 
-def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
+def gen_sample_rng(m, sigma, B, D, seeds, lam: int, impl: str = "auto"):
     """Fused sampling (Y, X) on the counter stream of ``seeds`` (S, 2)."""
-    if _on_cuda(B):
+    if _kernel(impl, B):
         return cma_gen.gen_sample_rng(m, sigma, B, D, seeds, lam)
     return ref.gen_sample_rng(m, sigma, B, D, seeds, lam)
 
 
-def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, sep):
+def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, sep,
+                        impl: str = "auto"):
     """Eval-fused sampling (Y, F) on the counter stream; ``sep`` as in
     ``gen_sample_eval``."""
-    if _on_cuda(B):
+    if _kernel(impl, B):
         return cma_gen.gen_sample_rng_eval(m, sigma, B, D, seeds, lam, *sep)
     return ref.gen_sample_rng_eval(m, sigma, B, D, seeds, lam, sep)
 

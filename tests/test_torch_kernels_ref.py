@@ -14,7 +14,8 @@ from repro.kernels import ref as jref
 from repro.kernels.cma_sample import cma_sample as j_cma_sample
 from repro.kernels.cma_update import cma_rank_mu_update as j_rank_mu_update
 from repro_torch.fitness import bbob as tb
-from repro_torch.kernels import cma_gen, cma_sample, cma_update, ops
+from repro_torch.kernels import (cma_gen, cma_sample, cma_update, ops,
+                                 sample_plan)
 from repro_torch.kernels import ref as tref
 
 # (S, lam, n): odd n, λ < 8, S > 1
@@ -296,7 +297,7 @@ def test_sample_groups_is_the_per_group_op():
 def test_sample_tile_table_covers_each_group(starts, rows):
     """The kernel's row tiles cover every group's rows exactly once, hold at
     most ``rows`` rows and never cross a group boundary."""
-    tiles = cma_sample._tile_table(starts, rows, torch.device("cpu"))
+    tiles = sample_plan.tile_table(starts, rows, torch.device("cpu"))
     assert tiles.dtype == torch.int32 and tiles.shape[1] == 3
     covered = []
     for g, r0, r1 in tiles.tolist():
@@ -396,6 +397,54 @@ def test_eager_tiers_take_the_plain_version_on_the_card(fake_card):
             torch.testing.assert_close(g, p, rtol=1e-13, atol=1e-14)
     assert ops.use_fused("auto") and ops.use_fused("eager")
     assert not ops.use_fused("eager_unfused")
+
+
+@pytest.mark.parametrize("fid", [1, 2])
+def test_sample_ops_honour_the_tier_on_the_card(fake_card, monkeypatch, fid):
+    """The four fused sample ops (kernels 1-4) route through the tier as
+    ``gen_update`` does: on a CUDA tensor the kernel tiers call the kernel
+    wrappers, ``eager`` and ``eager_unfused`` the plain versions, with the
+    same values."""
+    S, lam, n = 2, 6, 5
+    a = _inputs(S, lam, n, seed=fid)
+    fn, inst = tb.make_fitness(fid, n, 1, device="cpu")
+    sep = ops.slot_fitness(tb.fusable_fitness(inst, (fid,), fn), S,
+                           torch.float64).sep
+    seeds = torch.tensor([[7, 2 ** 31 + 3], [11, 5]])
+    state = [_t(a[k]) for k in ("m", "sigma", "B", "D")]
+    Z = _t(a["Z"])
+
+    def fake(name, n_lead):
+        plain = getattr(tref, name)
+
+        def call(*args):
+            fake_card.append(name)
+            lead, rest = args[:n_lead], args[n_lead:]
+            return plain(*lead, tb.SepCoeffs(*rest)) if rest else plain(*lead)
+        monkeypatch.setattr(cma_gen, name, call)
+    for name, n_lead in (("gen_sample", 5), ("gen_sample_eval", 5),
+                         ("gen_sample_rng", 6), ("gen_sample_rng_eval", 6)):
+        fake(name, n_lead)
+
+    def run_all(impl):
+        return [ops.gen_sample(*state, Z, impl=impl),
+                ops.gen_sample_eval(*state, Z, sep, impl=impl),
+                ops.gen_sample_rng(*state, seeds, lam, impl=impl),
+                ops.gen_sample_rng_eval(*state, seeds, lam, sep, impl=impl)]
+
+    plain = run_all("eager")
+    assert fake_card == []
+    assert run_all("eager_unfused") and fake_card == []
+    for impl in ops.KERNEL_TIERS:
+        fake_card.clear()
+        got = run_all(impl)
+        assert fake_card == ["gen_sample", "gen_sample_eval",
+                             "gen_sample_rng", "gen_sample_rng_eval"]
+        for g, p in zip(got, plain):
+            for x, y in zip(g, p):
+                assert torch.equal(x, y)
+    with pytest.raises(ValueError):
+        ops.gen_sample(*state, Z, impl="xla")
 
 
 def test_kernel_7_and_8_wrappers_refuse_cpu_tensors():

@@ -87,6 +87,36 @@ def test_run_ipop_exact_descents(fid, monkeypatch):
                                   rj.hit_evals(targets, float(ji.f_opt)))
 
 
+def test_run_ipop_signature_matches_jax():
+    """The parameters both packages' ``run_ipop`` take come in JAX's order
+    with JAX's defaults; the port adds only the keyword ``device``."""
+    import inspect
+    jp = inspect.signature(jipop.run_ipop).parameters
+    tp = inspect.signature(tipop.run_ipop).parameters
+    shared = [p for p in jp if p in tp]
+    assert shared == ["fitness_fn", "n", "key", "lam_start", "kmax_exp",
+                      "max_evals", "domain", "sigma0_frac", "chunk", "impl",
+                      "dtype", "total_gens", "backend"]
+    assert list(tp)[:len(shared)] == shared
+    for p in shared[3:]:
+        if p != "impl":                  # the two packages' tier names
+            assert tp[p].default == jp[p].default, p
+    assert tp["impl"].default == jp["impl"].default == "auto"
+    assert [p for p in tp if p not in jp] == ["device"]
+    assert tp["device"].kind is inspect.Parameter.KEYWORD_ONLY
+
+
+@pytest.mark.parametrize("backend", ["ladder", "bucketed", "hostloop",
+                                     "mesh", "service"])
+def test_run_ipop_validates_impl_first(backend):
+    """As the JAX package does, ``impl`` is checked at entry for every
+    backend, before an unported backend raises."""
+    fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
+    with pytest.raises(ValueError, match="impl"):
+        tipop.run_ipop(fn, 3, 0, impl="pallas", backend=backend,
+                       device="cpu")
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         tladder.LadderEngine(n=3, eigen_schedule="flat", device="cpu")
@@ -95,3 +125,5 @@ def test_unported_options_raise():
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
     with pytest.raises(NotImplementedError):
         tipop.run_ipop(fn, 3, 0, backend="mesh", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tipop.run_ipop(fn, 3, 0, backend="hostloop", device="cpu")

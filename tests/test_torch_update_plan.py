@@ -4,7 +4,7 @@
 of its gram pass from (S, λ, n) alone; the CUDA kernel takes the plan as
 it is.  Checked at every shape ``chip_smoke.py`` phase 2 launches the
 kernel at: the full-size ladder paths (n = 1000 and n = 40, λ = 3072), the
-ragged shape, and every bucket of the bucketed paths."""
+two ragged shapes, and every bucket of the bucketed paths."""
 import re
 from pathlib import Path
 
@@ -14,7 +14,7 @@ from repro_torch.kernels import cma_gen
 
 LAM_START, KMAX = 12, 8
 SHAPES = ([(1, LAM_START << KMAX, 1000), (1, LAM_START << KMAX, 40),
-           (3, 37, 45), (1, LAM_START, 1000)]
+           (3, 37, 45), (2, 37, 101), (1, LAM_START, 1000)]
           + [(1, LAM_START << k, 40) for k in range(KMAX)])
 #: SMs of an H100: the full-size shapes must fill them
 SMS = 132
