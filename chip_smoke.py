@@ -11,8 +11,9 @@ Phases, one JSON line each with its seconds; any failed check raises
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
    ``cuobjdump -sass`` must find FP64 tensor-core instructions (DMMA) in
    the sample kernels (rows 1-4, ``cma_gen_sample``; row 7,
-   ``cma_sample``) and the update kernel (row 6), and wgmma (HGMMA) in
-   flash attention (row 9);
+   ``cma_sample``) and the update kernels (row 6, ``cma_gen_update``; row
+   8, ``cma_update``: both take their gram from ``gram_gemm.cuh``), and
+   wgmma (HGMMA) in flash attention (row 9);
 2. each kernel against its plain version on the card, at the shapes of
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
    f1 instance's coefficients), two ragged ones (S=3, λ=37, n=45, one
@@ -35,17 +36,22 @@ Phases, one JSON line each with its seconds; any failed check raises
    — in both forms (Y, and X = m + σ·Y), each again bit-identical on a
    second launch into NaN-filled memory; the rank-μ update kernel (row 8,
    ``cma_rank_mu_update``) at (λ, n) = (12, 1000), (3072, 1000) and
-   (192, 40), directly and through ``rank_mu_gram``'s zero-C form, C′
-   exactly symmetric; float64 (≤ 1e-12) and float32 (≤ 1e-4).  The flash
-   attention kernel (row 9) at qwen2-0.5b's prefill (4, 2048, 14 heads, 2
-   KV heads, D=64), with windows 32 and 100 that start mid-tile, at a
-   ragged S=129, at D=32 and D=128 and once non-causal; the WKV kernel
-   (row 10) at rwkv6-3b's prefill (4, 1024, 40 heads, D=64) with a
-   non-zero initial state, final state compared too, and at D=32 and 128;
-   both in float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element
-   by element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value|
-   of the element's row, its last axis; the phase's line gives each
-   kernel's worst bf16 element as a share of its limit);
+   (192, 40), directly, with every other weighted row's weight negative,
+   with a second slot of zero weights and through ``rank_mu_gram``'s
+   zero-C form, C′ exactly symmetric, each direct call bit-identical on a
+   second launch into NaN-filled memory (C′'s block and the partial-gram
+   scratch's); float64 (≤ 1e-12) and float32
+   (≤ 1e-4).  The flash attention kernel (row 9) at qwen2-0.5b's prefill
+   (4, 2048, 14 heads, 2 KV heads, D=64), with windows 32 and 100 that
+   start mid-tile, at a ragged S=129, at D=32 and D=128 and once
+   non-causal; the WKV kernel (row 10) at rwkv6-3b's prefill (4, 1024, 40
+   heads, D=64) with a non-zero initial state, final state compared too,
+   and at D=32 and 128, each with and without the initial state again
+   bit-identical on a second launch into NaN-filled memory; both in
+   float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element by
+   element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value| of
+   the element's row, its last axis; the phase's line gives each kernel's
+   worst bf16 element as a share of its limit);
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -132,8 +138,13 @@ Phases, one JSON line each with its seconds; any failed check raises
    shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
    phase 6's layout for row 7, (3072, 1000) for row 8 and the serving
    prefill's shapes for rows 9 and 10 (bound: bytes over 3.35 TB/s, or the
-   unmasked work over 989 TFLOP/s for bf16 inputs and 67 for f32; one
-   SDPA call is row 9's library time, row 10 has none).
+   unmasked work over 989 TFLOP/s for row 9's bf16 inputs and 67 for f32
+   and for row 10, which computes in f32 whatever its inputs' type; one
+   SDPA call is row 9's library time, row 10 has none).  Rows 8 and 10
+   also give ``tools/profile_update.py``'s ``profile_call`` over 20 calls
+   beside the wall-clock ms: each kernel's device µs per launch and the
+   launches ``torch.profiler`` recorded, the CUDA-event ms and the host µs
+   of a call.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -167,6 +178,7 @@ from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from tools import profile_update  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FP64 on the tensor cores and
 # FP32 outside them; HBM3 bandwidth.
@@ -245,10 +257,11 @@ NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
           max_evals=480)
 
 #: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
-#: tensor cores) for the float64 sample tiles (rows 1-4, 7) and row 6's
-#: gram, HGMMA (wgmma) for row 9's bf16 products
+#: tensor cores) for the float64 sample tiles (rows 1-4, 7) and the gram of
+#: rows 6 and 8, HGMMA (wgmma) for row 9's bf16 products
 TENSOR_SASS = {"cma_gen_sample": "DMMA", "cma_sample": "DMMA",
-               "cma_gen_update": "DMMA", "flash_attention": "HGMMA"}
+               "cma_gen_update": "DMMA", "cma_update": "DMMA",
+               "flash_attention": "HGMMA"}
 #: phase 4c: float32 campaigns on f1
 F32 = dict(n=40, budget=10_000)
 #: the (backend, impl) runs of phase 4c that the CPU repeats: one a backend
@@ -399,12 +412,18 @@ def grouped_inputs(starts, n, dtype, dev, seed=0):
                 sigma=t(rng.uniform(0.1, 0.5, size=G)))
 
 
-def rank_mu_inputs(lam, n, dtype, dev, seed=2):
-    """The rank-μ update kernel's operands at (λ, n), one slot: C, Y, w
-    (half the rows weighted, in permuted order), p_c and (decay, c_μ, c₁)."""
-    u = update_inputs(1, lam, n, dtype, dev, seed, zero_slot=False)
-    coef = torch.tensor([[0.7, 0.2, 0.05]], device=dev).to(dtype)
-    return dict(C=u["C"], Y=u["Y"], w=u["w"], p_c=u["p_c"], coef=coef)
+def rank_mu_inputs(lam, n, dtype, dev, seed=2, S=1, negative=False):
+    """The rank-μ update kernel's operands at (λ, n): C, Y, w (half the
+    rows weighted, in permuted order), p_c and (decay, c_μ, c₁) per slot.
+    With ``S`` = 2 the second slot's weights are all zero; with
+    ``negative`` every other weighted row's weight changes sign."""
+    u = update_inputs(S, lam, n, dtype, dev, seed, zero_slot=S > 1)
+    w = u["w"]
+    if negative:
+        w = w.clone()
+        w[:, 1::2] = -w[:, 1::2]
+    coef = torch.tensor([[0.7, 0.2, 0.05]] * S, device=dev).to(dtype)
+    return dict(C=u["C"], Y=u["Y"], w=w, p_c=u["p_c"], coef=coef)
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +473,8 @@ def lm_compare(name, got, want, dtype):
 
 
 #: the integer type of each float type's bits
-BITS = {torch.float64: torch.int64, torch.float32: torch.int32}
+BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+        torch.bfloat16: torch.int16}
 
 
 def same_bits(name, got, want):
@@ -486,21 +506,30 @@ def poisoned_update(u):
     return cma_gen.gen_update(**u)
 
 
-def repeat_on_poison(name, call, first):
+def repeat_on_poison(name, call, first, scratch=0):
     """``call()`` again just after blocks of the sizes of the storages
-    behind ``first`` (the first call's outputs, still held) were filled
-    with NaN and freed, as ``poisoned_update`` does: an output element the
-    kernels leave unwritten, or a scratch element read before it is
-    written, shows as a NaN or a changed bit.  Its bits must equal
-    ``first``'s."""
+    behind ``first`` (the first call's outputs, still held) and then one of
+    ``scratch`` elements (the scratch the call allocates after its
+    outputs) were filled with NaN and freed, as ``poisoned_update`` does:
+    an output element the kernels leave unwritten, or a scratch element
+    read before it is written, shows as a NaN or a changed bit.  Its bits
+    must equal ``first``'s."""
     sizes = {}
     for t in first:
         st = t.untyped_storage()
         sizes[st.data_ptr()] = (st.nbytes() // t.element_size(), t.dtype)
+    blocks = list(sizes.values()) + ([(scratch, first[0].dtype)]
+                                     if scratch else [])
     poison = [torch.full((k,), float("nan"), dtype=dt, device=first[0].device)
-              for k, dt in sizes.values()]
+              for k, dt in blocks]
     del poison
     same_bits(f"{name} (second launch on NaN)", call(), first)
+
+
+def symmetric(name, C):
+    """C equals its transpose bit for bit."""
+    if not torch.equal(C, C.transpose(-1, -2)):
+        raise AssertionError(f"{name}: C' is not symmetric")
 
 
 def same_result(name, got, want):
@@ -611,8 +640,7 @@ def phase_kernels(dev):
             want = ref_update(u)
             errs_here["cma_gen_update"] = compare("cma_gen_update", got,
                                                   want, dtype)
-            if not torch.equal(got[0], got[0].transpose(-1, -2)):
-                raise AssertionError("cma_gen_update: C' is not symmetric")
+            symmetric("cma_gen_update", got[0])
             # the chunks' partials are summed in a fixed order: a second
             # launch on the same inputs gives the same bits
             same_bits("cma_gen_update (second launch)", got,
@@ -667,7 +695,7 @@ def strategy_kernel_checks(dev, errs):
                      "dtype": str(dtype), "max_abs_err": e[0],
                      "max_rel_err": e[1],
                      **({"repeat_bit_identical": True}
-                        if name == "cma_sample" else {})})
+                        if label != "rank_mu_gram" else {})})
 
     for label, starts, n in strategy_layouts(dev):
         for dtype in (torch.float64, torch.float32):
@@ -689,20 +717,29 @@ def strategy_kernel_checks(dev, errs):
                    [len(starts) - 1, starts[-1], n])
     for lam, n in RANK_MU_SHAPES:
         for dtype in (torch.float64, torch.float32):
-            u = rank_mu_inputs(lam, n, dtype, dev)
-            args = (u["C"], u["Y"], u["w"], u["p_c"])
-            got = cma_update.rank_mu_update(*args, u["coef"])
-            e = compare("cma_rank_mu_update", (got,),
-                        (ref.rank_mu_update(*args, *u["coef"].unbind(1)),),
-                        dtype)
-            gram = ops.rank_mu_gram(u["Y"][0], u["w"][0])
+            # one slot; negative weights; a second slot of zero weights
+            for label, kw in (("C", {}), ("negative_w", dict(negative=True)),
+                              ("zero_w_slot", dict(S=2))):
+                u = rank_mu_inputs(lam, n, dtype, dev, **kw)
+                args = (u["C"], u["Y"], u["w"], u["p_c"])
+                got = cma_update.rank_mu_update(*args, u["coef"])
+                e = compare(f"cma_rank_mu_update {label}", (got,),
+                            (ref.rank_mu_update(*args,
+                                                *u["coef"].unbind(1)),),
+                            dtype)
+                symmetric("cma_rank_mu_update", got)
+                repeat_on_poison(f"cma_rank_mu_update {label}", lambda: (
+                    cma_update.rank_mu_update(*args, u["coef"]),), (got,),
+                    cma_update.gram_scratch(cma_update.rank_mu_plan(
+                        *u["Y"].shape)))
+                record("cma_rank_mu_update", label, e, dtype,
+                       [u["w"].shape[0], lam, n])
+                if label == "C":
+                    yw = (u["Y"][0], u["w"][0])
+            gram = ops.rank_mu_gram(*yw)
             e_g = compare("cma_rank_mu_update (rank_mu_gram)", (gram,),
-                          (ref.rank_mu_gram(u["Y"][0], u["w"][0]),), dtype)
-            for c in (got, gram):
-                if not torch.equal(c, c.transpose(-1, -2)):
-                    raise AssertionError("cma_rank_mu_update: C' is not "
-                                         "symmetric")
-            record("cma_rank_mu_update", "C", e, dtype, [1, lam, n])
+                          (ref.rank_mu_gram(*yw),), dtype)
+            symmetric("cma_rank_mu_update (rank_mu_gram)", gram)
             record("cma_rank_mu_update", "rank_mu_gram", e_g, dtype,
                    [1, lam, n])
     torch.cuda.synchronize()
@@ -1352,12 +1389,15 @@ def strategy_kernel_rows(dev, errs, launches):
         lam_nz = int((u["w"] != 0).sum())
         yt = u["Y"][0].transpose(0, 1)
         wy = (u["w"][0, :, None] * u["Y"][0]).contiguous()
+
+        def kern():
+            return cma_update.rank_mu_update(*args, u["coef"])
         return {"shape": [1, lam, n], **timed(
-            lambda: cma_update.rank_mu_update(*args, u["coef"]),
-            lambda: ref.rank_mu_update(*args, *u["coef"].unbind(1)),
+            kern, lambda: ref.rank_mu_update(*args, *u["coef"].unbind(1)),
             lambda: torch.matmul(yt, wy),
             n * (n + 1) * lam_nz + 2.5 * n * (n + 1),
-            8 * (2 * n * n + lam_nz * n + lam + n + 3))}
+            8 * (2 * n * n + lam_nz * n + lam + n + 3)),
+            "profile": profile_update.profile_call(kern, 20)}
 
     paths = {"cma_sample": {
         p: {"launches": launches[p]["cma_sample"],
@@ -1450,21 +1490,17 @@ def lm_kernel_checks(dev, errs):
             o0_ref, st0_ref = ref.wkv_chunked(*args, torch.zeros_like(st))
             e_0 = lm_compare("wkv6_forward zero state", (o0, st0),
                              (o0_ref, st0_ref), dtype)
+            repeat_on_poison("wkv6_forward", lambda: rwkv6_wkv.wkv6_forward(
+                *args, a["state"]), (o, st))
+            repeat_on_poison("wkv6_forward zero state",
+                             lambda: rwkv6_wkv.wkv6_forward(*args), (o0, st0))
             es = (e_o, e_s, e_0)            # the ratio is None in float32
             record("wkv6_forward", tuple(
                 None if e_o[i] is None else max(e[i] for e in es)
-                for i in range(3)), dtype, shape, state_max_rel_err=e_s[1])
+                for i in range(3)), dtype, shape, state_max_rel_err=e_s[1],
+                repeat_bit_identical=True)
     torch.cuda.synchronize()
     return rows
-
-
-def _device_us(evt) -> float:
-    """An event's own device time in µs (the attribute's name varies across
-    torch versions)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    raise AttributeError("no device time on profiler events")
 
 
 def profiled(fn, top=8):
@@ -1481,18 +1517,19 @@ def profiled(fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    evts = [e for e in prof.key_averages() if _device_us(e) > 0]
-    busy_ms = sum(_device_us(e) for e in evts
+    dev_us = profile_update.device_us
+    evts = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in evts
                   if getattr(e, "device_type", None) is not None
                   and "CUDA" in str(e.device_type)) / 1e3
-    rows = sorted(evts, key=_device_us, reverse=True)[:top]
+    rows = sorted(evts, key=dev_us, reverse=True)[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "aten_calls": sum(e.count for e in prof.key_averages()
                               if str(getattr(e, "device_type", "")).endswith(
                                   "CPU") and e.key.startswith("aten::")),
             "top": [{"name": e.key[:80], "count": e.count,
-                     "device_ms": _device_us(e) / 1e3} for e in rows]}
+                     "device_ms": dev_us(e) / 1e3} for e in rows]}
 
 
 def phase_serve(dev, arch):
@@ -1749,12 +1786,19 @@ def lm_kernel_rows(dev, errs, launches):
         n = B * S * H * D
         nbytes = (a["r"].element_size() * 4 * n + 4 * n + 4 * H * D
                   + 2 * 4 * B * H * D * D)
-        b_ms, b_by = lm_bound(B * H * S * (2.0 * 16 * D + 4.0 * D * D),
-                              nbytes, dtype)
+        flops = B * H * S * (2.0 * 16 * D + 4.0 * D * D)
+        # the kernel computes in f32 whatever its inputs' type: its
+        # operations go at the f32 FMA rate
+        b_ms, b_by = lm_bound(flops, nbytes, torch.float32)
+
+        def kern():
+            return rwkv6_wkv.wkv6_forward(*args)
         return {"shape": [B, S, H, D], "dtype": str(dtype),
-                "ms": time_ms(lambda: rwkv6_wkv.wkv6_forward(*args)),
+                "ms": time_ms(kern),
                 "plain_ms": time_ms(lambda: ref.wkv_chunked(*args), reps=3),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None,
+                "profile": profile_update.profile_call(kern, 20)}
 
     q2 = configs.get_config("qwen2-0.5b")
     rw = configs.get_config("rwkv6-3b")

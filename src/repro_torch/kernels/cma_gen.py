@@ -208,9 +208,10 @@ def sample_z_rng(seeds, lam: int, n: int, dtype=torch.float64):
     return Z
 
 
-#: ``update_plan``'s constants, mirrored in ``csrc/cma_gen_update.cu``:
-#: the C′ tile edge, the population rows of a stage, the most rows a chunk
-#: may hold, the largest n of the one-block vector phase, the rows of B per
+#: ``update_plan``'s constants, mirrored in ``csrc/gram_gemm.cuh`` (the
+#: gram split that rows 6 and 8 share) and ``csrc/cma_gen_update.cu``: the
+#: C′ tile edge, the population rows of a stage, the most rows a chunk may
+#: hold, the largest n of the one-block vector phase, the rows of B per
 #: block of its two-launch form (Bᵀy_w, then whiten), and the gram blocks
 #: the split aims for (two per SM of an H100)
 TILE, STAGE_ROWS, MAX_CHUNK_ROWS = 64, 16, 1024

@@ -23,21 +23,15 @@
 // all in a fixed order (no atomics: the result does not vary from run to
 // run):
 //
-// 1. gram_kernel, one block per (upper-triangle 64 x 64 tile of C', chunk
-//    of population rows, slot).  The chunks are cut by the wrapper
-//    (cma_gen.update_plan) so that at n = 40 and at n = 1000 at least 132
-//    blocks are in flight.  A block first lists its chunk's rows of
-//    non-zero weight in order (a ballot scan in shared memory), so the
-//    weighted rows, scattered through Y in sample order, are the only rows
-//    it stages.  Y slabs of 16 listed rows come in by cp.async (16 bytes a
-//    copy where n keeps rows aligned) into a ring of three stages.  float64
-//    tiles run on the FP64 tensor cores (DMMA, mma.sync m16n8k16: four
-//    warps of 32 x 32), with w applied to the A fragment in registers;
-//    float32 stays on FFMA (TF32 would miss the 1e-4 tolerance) over the
-//    same slabs.  A block on a diagonal tile also sums w Y over its 64
-//    columns: y_w is the gram against the sqrt(w) column, so it costs no
-//    separate walk.  Each block writes its partial tile and partial y_w to
-//    scratch.
+// 1. gram::gram_kernel (gram_gemm.cuh, shared with cma_update.cu): one
+//    block per (upper-triangle 64 x 64 tile of C', chunk of population
+//    rows, slot), the chunks cut by cma_gen.update_plan so that at n = 40
+//    and at n = 1000 at least 132 blocks are in flight; only rows of
+//    non-zero weight are staged (cp.async ring), float64 tiles on DMMA,
+//    float32 on FFMA.  A block on a diagonal tile also sums w Y over its
+//    64 columns: y_w is the gram against the sqrt(w) column, so it costs
+//    no separate walk.  Each block writes its partial tile and partial y_w
+//    to scratch.
 // 2. The vector phase.  For n <= 128 one block per slot (vec_small_kernel)
 //    sums the y_w partials, then does B^T y_w / D, whiten, p_sigma',
 //    |p_sigma'|, h_sigma, decay and the p_c' pull.  Above that, B (8 MB at
@@ -45,34 +39,25 @@
 //    by 128 rows a block: 256 blocks at n = 1000) and whiten_kernel (8 rows
 //    a block, one warp a row), each block writing a partial of B^T y_w or
 //    of |p_sigma'|^2; paths_kernel sums the latter for h_sigma.
-// 3. epilogue_kernel sums the partial tiles in chunk order and writes
-//    p_c' and each C' value with i <= j to (i, j) and (j, i): C' is exactly
-//    symmetric.
+// 3. epilogue_kernel (gram::epilogue_tile) sums the partial tiles in chunk
+//    order and writes p_c' and each C' value with i <= j to (i, j) and
+//    (j, i): C' is exactly symmetric.
 #include <cmath>
 
-#include "cma_gen_common.cuh"
+#include "gram_gemm.cuh"
 
 namespace {
 
-using cma_gen::cp_async;
-using cma_gen::cp_async_commit;
-using cma_gen::cp_async_wait;
-using cma_gen::dmma;
-using cma_gen::DMMA_K;
+using gram::EPI_THREADS;
 
 enum Coef { C_SIGMA = 0, MU_EFF, C_C, C_1, C_MU, CHI_N, GEN1, N_COEF };
 
-// These constants are mirrored by cma_gen.update_plan.
-constexpr int BT = 64;                // edge of a C' tile
-constexpr int BK = 16;                // listed population rows per stage
-constexpr int STAGES = 3;             // cp.async ring depth
-constexpr int LD = BT + 4;            // slab row pitch: conflict-free DMMA
-constexpr int MAX_CHUNK_ROWS = 1024;  // population rows a chunk may hold
+// These constants are mirrored by cma_gen.update_plan (the gram's are in
+// gram_gemm.cuh).
 constexpr int VEC_THREADS = 256;
 constexpr int T_COLS = 32;            // t_kernel: columns of B a block
 constexpr int T_ROWS = 128;           // t_kernel: rows of B a block
 constexpr int W_ROWS = 8;             // whiten_kernel: rows (warps) a block
-constexpr int EPI_THREADS = 256;
 
 template <typename T>
 __device__ __forceinline__ T whiten_floor();
@@ -80,232 +65,6 @@ template <>
 __device__ __forceinline__ float whiten_floor<float>() { return 1e-30f; }
 template <>
 __device__ __forceinline__ double whiten_floor<double>() { return 1e-300; }
-
-template <typename T>
-struct GramSmem {
-  T a[STAGES][BK][LD];
-  T b[STAGES][BK][LD];
-  T wl[MAX_CHUNK_ROWS];               // weights of the listed rows
-  int idx[MAX_CHUNK_ROWS];            // the listed rows, ascending
-  int warp_tot[32];
-};
-
-__device__ __forceinline__ void tile_of(int tile, int nt, int& bi, int& bj) {
-  bi = 0;
-  while (tile >= nt - bi) {
-    tile -= nt - bi;
-    ++bi;
-  }
-  bj = bi + tile;
-}
-
-// Lists the rows of [r0, r1) with non-zero weight, ascending, into sm.idx
-// and sm.wl; pads sm.wl with zeros to a whole stage; returns the count.
-template <typename T>
-__device__ int list_rows(const T* __restrict__ ws, int r0, int r1,
-                         GramSmem<T>& sm) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nw = blockDim.x >> 5;
-  int base = 0;
-  for (int g = r0; g < r1; g += blockDim.x) {
-    const int r = g + tid;
-    const T wr = r < r1 ? ws[r] : T(0);
-    const bool keep = wr != T(0);
-    const unsigned m = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) sm.warp_tot[warp] = __popc(m);
-    __syncthreads();
-    int off = base;
-    for (int q = 0; q < warp; ++q) off += sm.warp_tot[q];
-    off += __popc(m & ((1u << lane) - 1u));
-    if (keep) {
-      sm.idx[off] = r;
-      sm.wl[off] = wr;
-    }
-    for (int q = 0; q < nw; ++q) base += sm.warp_tot[q];
-    __syncthreads();
-  }
-  const int padded = cma_gen::cdiv(base, BK) * BK;
-  for (int q = base + tid; q < padded; q += blockDim.x) sm.wl[q] = T(0);
-  __syncthreads();
-  return base;
-}
-
-// One block's 64 x 64 tile of the gram, accumulated stage by stage from
-// the slabs As (rows of the tile's i columns) and Bs (its j columns) with
-// the stage's weights w.  float64: four warps, each a 32 x 32 quarter in
-// DMMA 16 x 8 tiles; float32: 16 x 16 threads, each 4 x 4 values on FFMA.
-template <typename T>
-struct GramTile;
-
-template <>
-struct GramTile<double> {
-  static constexpr int THREADS = 128;
-  double acc[2][4][4] = {};
-
-  __device__ __forceinline__ void stage(const double (*As)[LD],
-                                        const double (*Bs)[LD],
-                                        const double* w, int tid) {
-    const int lane = tid & 31;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int wr = (tid >> 6) * 32;
-    const int wc = ((tid >> 5) & 1) * 32;
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += DMMA_K) {
-      double a[2][DMMA_K / 2], b[4][DMMA_K / 4];
-#pragma unroll
-      for (int i = 0; i < DMMA_K / 2; ++i) {
-        const int kk = k0 + t + 4 * (i / 2);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          a[mi][i] = As[kk][wr + 16 * mi + g + 8 * (i % 2)] * w[kk];
-      }
-#pragma unroll
-      for (int i = 0; i < DMMA_K / 4; ++i)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-          b[ni][i] = Bs[k0 + t + 4 * i][wc + 8 * ni + g];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) dmma(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-
-  // Writes the entries (r, c) of the tile with i0 + r, j0 + c < n.
-  __device__ __forceinline__ void store(double* out, int i0, int j0, int n,
-                                        int tid) const {
-    const int lane = tid & 31;
-    const int wr = (tid >> 6) * 32 + (lane >> 2);
-    const int wc = ((tid >> 5) & 1) * 32 + 2 * (lane & 3);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wr + 16 * mi + 8 * (e / 2);
-          const int c = wc + 8 * ni + e % 2;
-          if (i0 + r < n && j0 + c < n) out[r * BT + c] = acc[mi][ni][e];
-        }
-  }
-};
-
-template <>
-struct GramTile<float> {
-  static constexpr int THREADS = 256;
-  float acc[4][4] = {};
-
-  __device__ __forceinline__ void stage(const float (*As)[LD],
-                                        const float (*Bs)[LD],
-                                        const float* w, int tid) {
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + 16 * a] * w[kk];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] += av[a] * bv[b];
-    }
-  }
-
-  __device__ __forceinline__ void store(float* out, int i0, int j0, int n,
-                                        int tid) const {
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int r = ty + 16 * a;
-        const int c = tx + 16 * b;
-        if (i0 + r < n && j0 + c < n) out[r * BT + c] = acc[a][b];
-      }
-  }
-};
-
-// Partial gram (and, on diagonal tiles, partial y_w) of one tile over one
-// chunk of population rows.  Gp is (S, chunks, tiles, BT, BT), Yp
-// (S, chunks, n); only entries inside n x n are written.
-template <typename T, bool WIDE>
-__global__ void __launch_bounds__(GramTile<T>::THREADS) gram_kernel(
-    const T* __restrict__ Y, const T* __restrict__ w, T* __restrict__ Gp,
-    T* __restrict__ Yp, int lam, int n, int nt, int chunk_rows, int chunks) {
-  constexpr int NT = GramTile<T>::THREADS;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  GramSmem<T>& sm = *reinterpret_cast<GramSmem<T>*>(smem_raw);
-  const int tile = blockIdx.x;
-  const int ch = blockIdx.y;
-  const int s = blockIdx.z;
-  const int tiles = gridDim.x;
-  int bi, bj;
-  tile_of(tile, nt, bi, bj);
-  const bool diag = bi == bj;
-  const int i0 = bi * BT;
-  const int j0 = bj * BT;
-  const int tid = threadIdx.x;
-  const T* Ys = Y + static_cast<size_t>(s) * lam * n;
-  const int r0 = ch * chunk_rows;
-  const int r1 = min(lam, r0 + chunk_rows);
-  const int cnt = list_rows(w + static_cast<size_t>(s) * lam, r0, r1, sm);
-  const int nst = cma_gen::cdiv(cnt, BK);
-
-  // VEC elements a copy: 16 bytes when n keeps every row 16-byte aligned
-  constexpr int VEC = WIDE ? 16 / sizeof(T) : 1;
-  auto issue = [&](int st) {
-    const int slot = st % STAGES;
-    for (int e = tid * VEC; e < BK * BT; e += NT * VEC) {
-      const int kk = e / BT;
-      const int c = e % BT;
-      const int q = st * BK + kk;
-      const bool row_ok = q < cnt;
-      const T* row = Ys + (row_ok ? static_cast<size_t>(sm.idx[q]) * n : 0);
-      const bool a_ok = row_ok && i0 + c < n;
-      cp_async<VEC * sizeof(T)>(&sm.a[slot][kk][c], a_ok ? row + i0 + c : Ys,
-                                a_ok);
-      if (!diag) {
-        const bool b_ok = row_ok && j0 + c < n;
-        cp_async<VEC * sizeof(T)>(&sm.b[slot][kk][c],
-                                  b_ok ? row + j0 + c : Ys, b_ok);
-      }
-    }
-  };
-
-  GramTile<T> gram;
-  T yw_acc = T(0);
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < nst) issue(p);
-    cp_async_commit();
-  }
-  for (int st = 0; st < nst; ++st) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (st + STAGES - 1 < nst) issue(st + STAGES - 1);
-    cp_async_commit();
-    const int slot = st % STAGES;
-    const T* wst = sm.wl + st * BK;
-    gram.stage(sm.a[slot], diag ? sm.a[slot] : sm.b[slot], wst, tid);
-    if (diag && tid < BT) {
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) yw_acc += wst[kk] * sm.a[slot][kk][tid];
-    }
-  }
-  cp_async_wait<0>();
-  gram.store(Gp + ((static_cast<size_t>(s) * chunks + ch) * tiles + tile) *
-                      BT * BT,
-             i0, j0, n, tid);
-  if (diag && tid < BT && i0 + tid < n)
-    Yp[(static_cast<size_t>(s) * chunks + ch) * n + i0 + tid] = yw_acc;
-}
 
 // The chunks' y_w partials summed in chunk order.
 template <typename T>
@@ -501,54 +260,26 @@ __global__ void __launch_bounds__(32) paths_kernel(
                  scal + 2 * s);
 }
 
-// C' for EPI_THREADS / lanes elements of one tile: the partial tiles summed
-// in chunk order (lane l takes chunks l, l + lanes, ...), then the lanes in
-// order; h_sigma, decay and p_c' from the |p_sigma'|^2 partials.
+// C' for EPI_THREADS / lanes elements of one tile (gram::epilogue_tile):
+// h_sigma, decay and p_c' from the vector phase's scalars.
 template <typename T>
 __global__ void __launch_bounds__(EPI_THREADS) epilogue_kernel(
     const T* __restrict__ C, const T* __restrict__ pc,
     const T* __restrict__ yw, const T* __restrict__ coef,
     const T* __restrict__ Gp, const T* __restrict__ scal,
-    T* __restrict__ Cn, T* __restrict__ pcn, int n, int nt, int chunks,
-    int lanes) {
-  __shared__ T part[EPI_THREADS];
-  const int tile = blockIdx.x;
-  const int s = blockIdx.z;
-  const int tiles = gridDim.x;
-  int bi, bj;
-  tile_of(tile, nt, bi, bj);
-  const int epb = EPI_THREADS / lanes;
-  const int e0 = blockIdx.y * epb;
-  if (bi * BT + e0 / BT >= n) return;          // the whole block is past n
-  const int tid = threadIdx.x;
-  const int e = e0 + tid % epb;
-  const int l = tid / epb;
-  const int i = bi * BT + e / BT;
-  const int j = bj * BT + e % BT;
-  const bool ok = e < BT * BT && i < n && j < n && i <= j;
-  T g = T(0);
-  if (ok) {
-    const T* gp =
-        Gp + (static_cast<size_t>(s) * chunks * tiles + tile) * BT * BT + e;
-    for (int ch = l; ch < chunks; ch += lanes)
-      g += gp[static_cast<size_t>(ch) * tiles * BT * BT];
-  }
-  part[tid] = g;
-  __syncthreads();
-  if (l != 0 || !ok) return;
-  for (int q = 1; q < lanes; ++q) g += part[tid + q * epb];
-  const T* c = coef + static_cast<size_t>(s) * N_COEF;
-  const T decay = scal[2 * s];
-  const T pull = scal[2 * s + 1];
-  const T cc = c[C_C];
-  const size_t o = static_cast<size_t>(s) * n;
-  const T pi = (T(1) - cc) * pc[o + i] + pull * yw[o + i];
-  const T pj = (T(1) - cc) * pc[o + j] + pull * yw[o + j];
-  const size_t ij = (o + i) * n + j;
-  const T v = decay * C[ij] + c[C_MU] * g + (c[C_1] * pi) * pj;
-  Cn[ij] = v;
-  Cn[(o + j) * n + i] = v;
-  if (i == j) pcn[o + i] = pi;
+    T* __restrict__ Cn, T* __restrict__ pcn, int n, int chunks, int lanes) {
+  gram::epilogue_tile<false>(Gp, Cn, n, chunks, lanes,
+                             [&](int s, int i, int j, T g) {
+    const T* c = coef + static_cast<size_t>(s) * N_COEF;
+    const T decay = scal[2 * s];
+    const T pull = scal[2 * s + 1];
+    const T cc = c[C_C];
+    const size_t o = static_cast<size_t>(s) * n;
+    const T pi = (T(1) - cc) * pc[o + i] + pull * yw[o + i];
+    const T pj = (T(1) - cc) * pc[o + j] + pull * yw[o + j];
+    if (i == j) pcn[o + i] = pi;
+    return decay * C[(o + i) * n + j] + c[C_MU] * g + (c[C_1] * pi) * pj;
+  });
 }
 
 template <typename T>
@@ -560,28 +291,14 @@ int launch_update(const T* C, const T* B, const T* D, const T* ps,
                   cudaStream_t stream) {
   using cma_gen::cdiv;
   using cma_gen::set_smem;
-  if (chunk_rows > MAX_CHUNK_ROWS || chunk_rows % BK || chunks < 1 ||
-      static_cast<long long>(chunks) * chunk_rows < lam || lanes < 1 ||
-      EPI_THREADS % lanes ||
+  if (!gram::plan_ok(lam, chunk_rows, chunks, lanes) ||
       (t_splits == 0 ? psq_parts != 1
                      : t_splits != cdiv(n, T_ROWS) ||
                            psq_parts != cdiv(n, W_ROWS)))
     return static_cast<int>(cudaErrorInvalidValue);
-  int err;
-  const int nt = cdiv(n, BT);
-  const int tiles = nt * (nt + 1) / 2;
-  const size_t gsm = sizeof(GramSmem<T>);
-  const dim3 ggrid(tiles, chunks, S);
-  if (n % (16 / sizeof(T)) == 0) {
-    if ((err = set_smem<gram_kernel<T, true>>(gsm)) != 0) return err;
-    gram_kernel<T, true><<<ggrid, GramTile<T>::THREADS, gsm, stream>>>(
-        Y, w, Gp, Yp, lam, n, nt, chunk_rows, chunks);
-  } else {
-    if ((err = set_smem<gram_kernel<T, false>>(gsm)) != 0) return err;
-    gram_kernel<T, false><<<ggrid, GramTile<T>::THREADS, gsm, stream>>>(
-        Y, w, Gp, Yp, lam, n, nt, chunk_rows, chunks);
-  }
-  if ((err = cma_gen::launch_status()) != 0) return err;
+  int err = gram::launch_gram<T, true>(Y, w, gram::ToScratch<T, true>{Gp, Yp},
+                                       S, lam, n, chunk_rows, chunks, stream);
+  if (err != 0) return err;
   if (t_splits == 0) {
     const size_t vsm = 2 * static_cast<size_t>(n) * sizeof(T);
     if ((err = set_smem<vec_small_kernel<T>>(vsm)) != 0) return err;
@@ -599,9 +316,8 @@ int launch_update(const T* C, const T* B, const T* D, const T* ps,
     paths_kernel<T><<<S, 32, 0, stream>>>(coef, psq, scal, n, psq_parts);
   }
   if ((err = cma_gen::launch_status()) != 0) return err;
-  const int epb = EPI_THREADS / lanes;
-  epilogue_kernel<T><<<dim3(tiles, cdiv(BT * BT, epb), S), EPI_THREADS, 0,
-                       stream>>>(C, pc, yw, coef, Gp, scal, Cn, pcn, n, nt,
+  epilogue_kernel<T><<<gram::epilogue_grid(n, lanes, S), EPI_THREADS, 0,
+                       stream>>>(C, pc, yw, coef, Gp, scal, Cn, pcn, n,
                                  chunks, lanes);
   return cma_gen::launch_status();
 }

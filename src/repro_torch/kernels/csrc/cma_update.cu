@@ -6,147 +6,123 @@
 //   C'[i, j] = decay C[i, j] + c_mu sum_k w[k] Y[k, i] Y[k, j]
 //              + c_1 p_c[i] p_c[j]
 //
-// with (decay, c_mu, c_1) the slot's row of coef.  The weighted gram
-// Y^T diag(w) Y is a GEMM with the population as its contraction.
+// with (decay, c_mu, c_1) the slot's row of coef.
 //
-// Layout: one block per 64 x 64 tile of C' in the upper triangle (i <= j
-// tiles only), the lam contraction inside the block in stages of 16 rows,
-// and the decay, c_mu and c_1 epilogue applied once per tile in registers:
-// C is read once and C' written once.  Each value with i <= j is written to
-// both (i, j) and (j, i), so C' is exactly symmetric, and C is only read on
-// and above its diagonal.  A stage whose 16 weights are all zero is skipped,
-// so zero-weight rows cost nothing and change nothing.  w enters as it is
-// (no square root), so any sign of weight is taken.  Every sum is in a fixed
-// order: the result does not vary from run to run.  The TPU kernel's tiles
-// cover the whole (i, j) grid and accumulate in float32; this one covers
-// the upper triangle and accumulates in T (float or double).
+// What bounds it: the upper triangle's gram is about n^2 lam_nz FLOP
+// (lam_nz the rows of non-zero weight), 1.5 GFLOP at n = 1000 and
+// lam = 3072 with half the rows weighted, against 16 MB of C and C' and
+// 12 MB of weighted rows of Y: bound by FP64 arithmetic (23 us at the 67
+// TFLOP/s tensor-core rate).  At lam = 12 it is bound by bytes.
 //
-// What bounds it: the upper triangle's gram is about n^2 lam_nz FLOP (lam_nz
-// the rows with non-zero weight), 3.1 GFLOP at n = 1000 and lam = 3072,
-// against 16 MB of C and C' and 25 MB of Y, so it is bound by FP64
-// arithmetic at that shape, and by bytes at lam = 12.  Faster forms (FP64
-// tensor-core tiles, splitting the lam contraction over blocks at small n)
-// are later work.
-#include "cma_gen_common.cuh"
+// The TPU kernel walks the population in one sequential grid; here one
+// call is one or two launches, in a fixed order (no atomics: a second
+// launch gives the same bits):
+//
+// 1. the gram of row 6 (gram_gemm.cuh, without its y_w column): one block
+//    per (upper-triangle 64 x 64 tile, chunk of population rows, slot),
+//    the chunks cut by cma_update.rank_mu_plan (row 6's split) so that at
+//    least 132 blocks are in flight; only rows of non-zero weight are
+//    staged (so zero-weight rows cost nothing and change nothing), w
+//    enters as it is (any sign of weight is taken); float64 tiles on DMMA,
+//    float32 on FFMA;
+// 2. rank_mu_epilogue sums each tile's partials in chunk order and writes
+//    decay C + c_mu G + c_1 p_c p_c^T for i <= j to (i, j) and (j, i): C'
+//    is exactly symmetric, and C is read on and above its diagonal only.
+//
+// Where the plan takes one chunk (small populations: a block walks a few
+// stages), the gram blocks write those values from their registers
+// (ToUpdate): one launch, and no partial tiles to write and read back.
+#include "gram_gemm.cuh"
 
 namespace {
 
 enum Coef { DECAY = 0, C_MU, C_1, N_COEF };
 
-constexpr int BT = 64;                // edge of a C' tile
-constexpr int BK = 16;                // population rows per stage
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int THREADS = TX * TY;
-
+// C'[s, i, j] from the gram's value g there.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) rank_mu_kernel(
-    const T* __restrict__ C, const T* __restrict__ Y,
-    const T* __restrict__ w, const T* __restrict__ pc,
-    const T* __restrict__ coef, T* __restrict__ Cn, int lam, int n, int nt) {
-  __shared__ T As[BK][BT];   // Y rows, columns i
-  __shared__ T Bs[BK][BT];   // w * Y rows, columns j
-  __shared__ T wst[BK];
-  const int s = blockIdx.y;
-  int bi = 0;
-  int rem = blockIdx.x;
-  while (rem >= nt - bi) {
-    rem -= nt - bi;
-    ++bi;
-  }
-  const int bj = bi + rem;
-  const int i0 = bi * BT;
-  const int j0 = bj * BT;
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const T* Ys = Y + static_cast<size_t>(s) * lam * n;
-  const T* ws = w + static_cast<size_t>(s) * lam;
-
-  T acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = T(0);
-
-  for (int k0 = 0; k0 < lam; k0 += BK) {
-    bool any = false;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk)
-      any |= (k0 + kk < lam) && ws[k0 + kk] != T(0);
-    if (!any) continue;                        // the same for every thread
-    if (tid < BK) wst[tid] = k0 + tid < lam ? ws[k0 + tid] : T(0);
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < (BT * BK) / THREADS; ++q) {
-      const int e = tid + THREADS * q;
-      const int kk = e / BT;
-      const int col = e % BT;
-      const int k = k0 + kk;
-      const size_t base = static_cast<size_t>(k) * n;
-      const int i = i0 + col;
-      const int j = j0 + col;
-      As[kk][col] = (k < lam && i < n) ? Ys[base + i] : T(0);
-      Bs[kk][col] = (k < lam && j < n) ? wst[kk] * Ys[base + j] : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      T av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + TY * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + TX * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] += av[a] * bv[b];
-    }
-    __syncthreads();
-  }
-
+__device__ __forceinline__ T rank_mu_value(const T* __restrict__ C,
+                                           const T* __restrict__ pc,
+                                           const T* __restrict__ coef, int n,
+                                           int s, int i, int j, T g) {
   const T* c = coef + static_cast<size_t>(s) * N_COEF;
-  const T decay = c[DECAY];
-  const T cmu = c[C_MU];
-  const T c1 = c[C_1];
-  const T* p = pc + static_cast<size_t>(s) * n;
-  const T* Cs = C + static_cast<size_t>(s) * n * n;
-  T* Cns = Cn + static_cast<size_t>(s) * n * n;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + TY * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + TX * b;
-      if (i < n && j < n && i <= j) {
-        const size_t ij = static_cast<size_t>(i) * n + j;
-        const T v = decay * Cs[ij] + cmu * acc[a][b] + c1 * (p[i] * p[j]);
-        Cns[ij] = v;
-        Cns[static_cast<size_t>(j) * n + i] = v;
-      }
-    }
-  }
+  const size_t o = static_cast<size_t>(s) * n;
+  return c[DECAY] * C[(o + i) * n + j] + c[C_MU] * g
+         + c[C_1] * (pc[o + i] * pc[o + j]);
 }
+
+// STAGED: the plan's lanes are at most 2 (gram::epilogue_tile).
+template <typename T, bool STAGED>
+__global__ void __launch_bounds__(gram::EPI_THREADS) rank_mu_epilogue(
+    const T* __restrict__ C, const T* __restrict__ pc,
+    const T* __restrict__ coef, const T* __restrict__ Gp,
+    T* __restrict__ Cn, int n, int chunks, int lanes) {
+  gram::epilogue_tile<STAGED>(Gp, Cn, n, chunks, lanes,
+                              [&](int s, int i, int j, T g) {
+    return rank_mu_value(C, pc, coef, n, s, i, j, g);
+  });
+}
+
+// The gram's output with one chunk: each value with i <= j < n, written
+// to (i, j) and (j, i).
+template <typename T>
+struct ToUpdate {
+  const T* C;
+  const T* pc;
+  const T* coef;
+  T* Cn;
+
+  __device__ __forceinline__ void operator()(const gram::GramTile<T>& acc,
+                                             T, int s, int, int i0, int j0,
+                                             bool, int n, int tid) const {
+    const size_t o = static_cast<size_t>(s) * n;
+    acc.each(tid, [&](int r, int c, T g) {
+      const int i = i0 + r;
+      const int j = j0 + c;
+      if (i < n && j < n && i <= j) {
+        const T v = rank_mu_value(C, pc, coef, n, s, i, j, g);
+        Cn[(o + i) * n + j] = v;
+        Cn[(o + j) * n + i] = v;
+      }
+    });
+  }
+};
 
 template <typename T>
 int launch_rank_mu(const T* C, const T* Y, const T* w, const T* pc,
-                   const T* coef, T* Cn, int S, int lam, int n,
+                   const T* coef, T* Cn, T* Gp, int S, int lam, int n,
+                   int chunk_rows, int chunks, int lanes,
                    cudaStream_t stream) {
-  const int nt = cma_gen::cdiv(n, BT);
-  const dim3 grid(nt * (nt + 1) / 2, S);
-  rank_mu_kernel<T><<<grid, THREADS, 0, stream>>>(C, Y, w, pc, coef, Cn, lam,
-                                                  n, nt);
+  if (!gram::plan_ok(lam, chunk_rows, chunks, lanes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (chunks == 1)
+    return gram::launch_gram<T, false>(Y, w, ToUpdate<T>{C, pc, coef, Cn}, S,
+                                       lam, n, chunk_rows, 1, stream);
+  const int err = gram::launch_gram<T, false>(
+      Y, w, gram::ToScratch<T, false>{Gp, nullptr}, S, lam, n, chunk_rows,
+      chunks, stream);
+  if (err != 0) return err;
+  const dim3 grid = gram::epilogue_grid(n, lanes, S);
+  if (lanes <= 2)
+    rank_mu_epilogue<T, true><<<grid, gram::EPI_THREADS, 0, stream>>>(
+        C, pc, coef, Gp, Cn, n, chunks, lanes);
+  else
+    rank_mu_epilogue<T, false><<<grid, gram::EPI_THREADS, 0, stream>>>(
+        C, pc, coef, Gp, Cn, n, chunks, lanes);
   return cma_gen::launch_status();
 }
 
 }  // namespace
 
-// coef is (S, 3): decay, c_mu, c_1 of each slot.
+// coef is (S, 3): decay, c_mu, c_1 of each slot.  Gp is the gram's scratch
+// (S, chunks, tiles, 64, 64), sized by cma_update.gram_scratch; unused
+// (and may be null) with one chunk.
 #define CMA_UPDATE_API(T, SUFFIX)                                            \
   extern "C" int cma_rank_mu_update_##SUFFIX(                                \
       const T* C, const T* Y, const T* w, const T* pc, const T* coef, T* Cn, \
-      int S, int lam, int n, void* stream) {                                 \
-    return launch_rank_mu<T>(C, Y, w, pc, coef, Cn, S, lam, n,               \
+      T* Gp, int S, int lam, int n, int chunk_rows, int chunks, int lanes,   \
+      void* stream) {                                                        \
+    return launch_rank_mu<T>(C, Y, w, pc, coef, Cn, Gp, S, lam, n,           \
+                             chunk_rows, chunks, lanes,                      \
                              static_cast<cudaStream_t>(stream));             \
   }
 

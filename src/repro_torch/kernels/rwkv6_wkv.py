@@ -6,7 +6,10 @@ bfloat16 or float32, logw (B, S, H, D) f32 and u (H, D) f32, S a multiple
 of 16 and D ∈ {32, 64, 128}.  Beyond the TPU kernel it takes an optional
 initial state (B, H, D, D) f32 (zero when None) and returns the final
 state beside o, as ``repro/models/rwkv6.py::wkv_chunked`` does.  One
-launch.  The plain PyTorch version is ``ref.wkv_chunked``.
+launch: a block per (b·h, 16 value columns of the state), each chunk of
+16 tokens staged by 16-byte asynchronous copies, so r, k, v, logw and
+the state must start on 16-byte boundaries.  The plain PyTorch version is
+``ref.wkv_chunked``.
 
 The wrapper takes CUDA tensors only — it checks device, dtype, shape and
 contiguity and raises, it never falls back — and launches on the current
@@ -49,6 +52,10 @@ def wkv6_forward(r, k, v, logw, u, state=None):
             _build.check("u", u, (H, D), f32, dev),
             0 if state is None else _build.check("state", state,
                                                  (B, H, D, D), f32, dev)]
+    for name, p in zip(("r", "k", "v", "logw", "state"),
+                       ptrs[:4] + ptrs[5:]):
+        if p % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     o = torch.empty_like(r)
     s_out = torch.empty((B, H, D, D), dtype=f32, device=dev)
     fn = _build.function("rwkv6_wkv", "wkv6_forward", dt, _ARGS)

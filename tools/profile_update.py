@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Per-launch device times of the generation kernels: the update (row 6),
-the sample kernels (rows 1-4, and row 5 where an RNG call launches it) and
-the grouped sample kernel (row 7).
+the sample kernels (rows 1-4, and row 5 where an RNG call launches it), the
+grouped sample kernel (row 7), the rank-μ update (row 8) and the RWKV-6
+WKV kernel (row 10).
 
     python3 tools/profile_update.py [--src DIR] [--calls N]
 
@@ -16,13 +17,22 @@ row 2 at (3072, 40) (``ipop_f1_restarts``) and (3072, 1000), row 3 at
 (``bucketed_rng_f1_restarts``) and (3072, 1000), with the f1 coefficients
 for the eval forms; row 7 at the K-Distributed heap of 512 devices × 12
 rows (nine descents) and K-Replicated's phases of 8 devices × 12 rows
-(G = 8, 4, 2, 1 groups), n = 1000.  Each call runs ``N`` times under
+(G = 8, 4, 2, 1 groups), n = 1000; row 8 at chip_smoke.py phase 2's
+(λ, n) = (12, 1000), (3072, 1000) and (192, 40), half the rows weighted,
+each beside its library call (``torch.matmul``, as ``chip_smoke.py`` times
+it); row 10 at rwkv6-3b's prefill (4, 1024, 40 heads, D = 64) in bfloat16
+and at the 2-layer card-vs-CPU check (2, 64, 40, 64) in float32, with an
+initial state.  Each call runs ``N`` times under
 ``torch.profiler`` after a warm-up; one JSON line gives, per call and
-shape, each kernel's device µs per call (its name as the profiler gives
-it), their sum, the CUDA-event ms of one call (``N`` calls in a row) and
-the host µs a call takes to return (``N`` calls in a row, no
-synchronisation inside): where the host µs exceed the device µs, the call
-is host-bound.  Needs a CUDA device; it never falls back to the CPU.
+shape, each kernel's device µs per launch (its name as the profiler gives
+it; its own device time over the launches the profiler recorded, which
+may be fewer than ``N``), the launches recorded, the sum of the kernels'
+µs (each kernel runs once a call in every call profiled here), the
+CUDA-event ms of one call (``N`` calls in a row) and the host µs a call
+takes to return (``N`` calls in a row, no synchronisation inside): where
+the host µs exceed the device µs, the call is host-bound.  Needs a CUDA
+device; it never falls back to the CPU.  ``chip_smoke.py`` phase 5 times
+rows 8 and 10 with ``profile_call``.
 """
 from __future__ import annotations
 
@@ -46,6 +56,9 @@ SAMPLE_SHAPES = [("cma_gen_sample", (1, 3072, 1000)),
                  ("cma_gen_sample_rng_eval", (1, 96, 40)),
                  ("cma_gen_sample_rng_eval", (1, 3072, 1000))]
 LAM, N7 = 12, 1000
+#: (S, λ, n) of row 8, and (B, S, H, D, dtype) of row 10
+RANK_MU_SHAPES = [(1, 12, 1000), (1, 3072, 1000), (1, 192, 40)]
+WKV_SHAPES = [(4, 1024, 40, 64, "bfloat16"), (2, 64, 40, 64, "float32")]
 
 
 def update_inputs(S, lam, n, dev, seed=0):
@@ -116,7 +129,50 @@ def sample_calls(dev):
     return calls
 
 
+def rank_mu_calls(dev):
+    """(label, call) of row 8 at each of ``RANK_MU_SHAPES``, each followed
+    by its library call, ``torch.matmul(Yᵀ, w·Y)`` as ``chip_smoke.py``
+    times it."""
+    from repro_torch.kernels import cma_update
+    calls = []
+    for S, lam, n in RANK_MU_SHAPES:
+        a = update_inputs(S, lam, n, dev)
+        coef = torch.tensor([[0.7, 0.2, 0.05]] * S, dtype=torch.float64,
+                            device=dev)
+        yt = a["Y"][0].transpose(0, 1)
+        wy = (a["w"][0, :, None] * a["Y"][0]).contiguous()
+        calls.append((f"cma_rank_mu_update {S},{lam},{n}",
+                      lambda a=a, coef=coef: cma_update.rank_mu_update(
+                          a["C"], a["Y"], a["w"], a["p_c"], coef)))
+        calls.append((f"torch.matmul {S},{lam},{n}",
+                      lambda yt=yt, wy=wy: torch.matmul(yt, wy)))
+    return calls
+
+
+def wkv_calls(dev):
+    """(label, call) of row 10 at each of ``WKV_SHAPES``: r, k, v standard
+    normal, logw = −exp(normal) clamped to [−5, −1e−6], u and the initial
+    state small normals."""
+    from repro_torch.kernels import rwkv6_wkv
+    calls = []
+    for B, S, H, D, dt in WKV_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * S + D)
+
+        def rn(*shape, dtype=torch.float32):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        dtype = getattr(torch, dt)
+        r, k, v = (rn(B, S, H, D, dtype=dtype) for _ in range(3))
+        logw = (-rn(B, S, H, D).exp()).clamp(-5.0, -1e-6)
+        u, s0 = 0.1 * rn(H, D), 0.5 * rn(B, H, D, D)
+        calls.append((f"wkv6_forward {B},{S},{H},{D} {dt}",
+                      lambda args=(r, k, v, logw, u, s0):
+                      rwkv6_wkv.wkv6_forward(*args)))
+    return calls
+
+
 def device_us(evt) -> float:
+    """A profiler event's own device time in µs, over all its launches
+    (the attribute's name varies across torch versions)."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
@@ -144,9 +200,11 @@ def profile_call(fn, calls: int) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = {e.key: device_us(e) / calls for e in prof.key_averages()
-               if device_us(e) > 0}
-    return {"kernels_us": kernels, "sum_us": sum(kernels.values()),
+    evts = [e for e in prof.key_averages() if device_us(e) > 0]
+    kernels = {e.key[:80]: device_us(e) / e.count for e in evts}
+    return {"kernels_us": kernels,
+            "recorded": {e.key[:80]: e.count for e in evts}, "calls": calls,
+            "sum_us": sum(kernels.values()),
             "event_ms": start.elapsed_time(end) / calls, "host_us": host_us}
 
 
@@ -164,13 +222,18 @@ def main() -> int:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    out = {"src": args.src, "gpu": gpu, "update": {}, "sample": {}}
+    out = {"src": args.src, "gpu": gpu, "update": {}, "sample": {},
+           "rank_mu": {}, "wkv": {}}
     for S, lam, n in UPDATE_SHAPES:
         a = update_inputs(S, lam, n, dev)
         out["update"][f"{S},{lam},{n}"] = profile_call(
             lambda: cma_gen.gen_update(**a), args.calls)
     for label, fn in sample_calls(dev):
         out["sample"][label] = profile_call(fn, args.calls)
+    for label, fn in rank_mu_calls(dev):
+        out["rank_mu"][label] = profile_call(fn, args.calls)
+    for label, fn in wkv_calls(dev):
+        out["wkv"][label] = profile_call(fn, args.calls)
     print(json.dumps(out), flush=True)
     return 0
 
