@@ -13,7 +13,10 @@ Phases, one JSON line each with its seconds; any failed check raises
    the sample kernels (rows 1-4, ``cma_gen_sample``; row 7,
    ``cma_sample``) and the update kernels (row 6, ``cma_gen_update``; row
    8, ``cma_update``: both take their gram from ``gram_gemm.cuh``), and
-   wgmma (HGMMA) in flash attention (row 9);
+   wgmma (HGMMA) in flash attention (row 9); the line also gives the FP64
+   instructions and all the instructions of row 5's float64 kernel in its
+   SASS, per element, that the bounds of rows 3-5 count, and the top SM
+   clock they are taken at;
 2. each kernel against its plain version on the card, at the shapes of
    phase 3 (S=1, λ=3072, n=1000) and phase 4 (S=1, λ=3072, n=40, with the
    f1 instance's coefficients), two ragged ones (S=3, λ=37, n=45, one
@@ -22,13 +25,18 @@ Phases, one JSON line each with its seconds; any failed check raises
    λ=12, n=1000 of phase 3b; S=1, λ=12·2ᵏ, n=40 for k = 0…7 of phase 4b,
    with the f1 coefficients), float64 (max relative error ≤ 1e-12) and
    float32 (≤ 1e-4); C′ must be exactly symmetric, and a second launch of
-   the sample kernels (rows 1-4) and the update kernel on the same inputs
+   the sample kernels (rows 1-5) and the update kernel on the same inputs
    bit-identical (every partial sum is added in a fixed order), each
    launch on memory that was just filled with NaN.  The in-kernel RNG kernels are fed seed
    words at and above 2³¹, and must be prefix-stable
    kernel against kernel, bit for bit, at n=1000 and n=40: the first 12
    and 192 rows of a λ=3072 call are a λ=12 and a λ=192 call (Z, Y, X
-   and F).  The grouped sample kernel (row 7, ``cma_sample``) at every
+   and F).  At every shape an RNG call (rows 3-4) gives, bit for bit, the
+   Z-operand call (rows 1-2) on row 5's Z of the same seeds; where it
+   draws Z in the kernel (n ≤ 64) it allocates no Z scratch
+   (``torch.cuda.memory_stats`` around a call: no block beyond its
+   outputs of S·λ·n elements or more).  The grouped
+   sample kernel (row 7, ``cma_sample``) at every
    row layout a strategies path gives it — the K-Distributed heap of
    phase 6 (512 devices × 12 rows, n=1000, nine descents), one descent of
    λ = 12·2ᵏ rows (k = 0…8, n=1000), the K-Replicated groups of phase 6c
@@ -60,9 +68,10 @@ Phases, one JSON line each with its seconds; any failed check raises
    agree;
 3b. the same problem through ``run_ipop(backend="bucketed",
    impl="kernel_rng")`` for 12·64 evaluations: 64 generations on rung 0,
-   padded to 12 rows instead of 3072, sampled by the in-kernel RNG kernel;
-   its launches, segments, host pulls (segments + 1), padding and ms per
-   generation beside phase 3's;
+   padded to 12 rows instead of 3072, sampled by the in-kernel RNG tier
+   (row 5's kernel, then the Z-operand sample kernel, one call a
+   generation); its launches, segments, host pulls (segments + 1), padding
+   and ms per generation beside phase 3's;
 3c. the bucketed path at n=8, λ_start=16 on the card and on the CPU (f8,
    and f1/f2 through the eval-fused kernels; ``auto`` and ``kernel_rng``):
    every int leaf of the trace and the final carry exactly, every float
@@ -73,16 +82,17 @@ Phases, one JSON line each with its seconds; any failed check raises
    eval-fused sample kernel (n=40, λ_max=3072, 50 000 evaluations: cut
    from 100 000 to keep the run within half its time limit);
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
-   counter-stream Z kernel, then the eval kernel), then again with the
-   speculative segment driver (``overlap=True``), whose result must be
-   bit-identical;
+   eval kernel drawing its own Z), which must spend ``FEVALS_4B``
+   evaluations, then again with the speculative segment driver
+   (``overlap=True``), whose result must be bit-identical;
 4c. float32 campaigns: ``run_ipop(dtype="float32")`` on f1 (n=40, 10 000
    evaluations) on the card on both backends under ``auto`` and
    ``kernel_rng``, and on the CPU once per backend (``F32_CPU``): fevals,
    descents with their stop reasons and best − f_opt side by side.  Every
    run ends within its last population of the budget, on the rungs
    λ_start·2^k in order, with best − f_opt ≤ 8 float32 ulp of f_opt (the
-   bound of ``tests/test_torch_float32.py``); float32 descents may end at
+   bound of ``tests/test_torch_float32.py``), and spends ``FEVALS_4C``
+   evaluations; float32 descents may end at
    other generations on the two devices (their stop fires on ulp-level
    noise at the float32 floor), so those are shown, not compared; the
    float32 kernels must have run;
@@ -132,7 +142,11 @@ Phases, one JSON line each with its seconds; any failed check raises
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
    4, 4b, 6, 6b, 6c, 7, 7b, 7c and 8) its launches, its time, the plain version's time,
    one PyTorch call's time (none for the Z stream alone) and the least
-   time the card could take (bound) at that path's shape (each time over
+   time the card could take (bound: the largest of the bytes over the
+   memory's rate, the FP64 tensor-core operations, and for rows 3-5 the
+   draw's INT32 operations and its FP64 instructions over their issue
+   rates; a line before it gives each of these parts) at that path's
+   shape (each time over
    10 launches, or 200 where one takes under 0.2 ms; row 7: at every
    row layout of its paths; row 8, which no path launches: at phase 2's
    shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
@@ -144,7 +158,10 @@ Phases, one JSON line each with its seconds; any failed check raises
    also give ``tools/profile_update.py``'s ``profile_call`` over 20 calls
    beside the wall-clock ms: each kernel's device µs per launch and the
    launches ``torch.profiler`` recorded, the CUDA-event ms and the host µs
-   of a call.
+   of a call.  Rows 1-4 at the bucketed paths' shapes give the CUDA
+   kernels a call launches (from the profiler): an RNG call as many as
+   the Z-operand call of its shape where it draws Z in the kernel (n ≤ 64),
+   one more (row 5's) on wider rows.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -152,6 +169,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import shutil
@@ -174,7 +192,7 @@ from repro_torch.fitness import bbob  # noqa: E402
 from repro_torch.fitness.nn_fitness import make_nn_fitness  # noqa: E402
 from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
                                  cma_update, flash_attention, ops, ref,
-                                 rwkv6_wkv)
+                                 rwkv6_wkv, sample_plan)
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
@@ -267,10 +285,25 @@ F32 = dict(n=40, budget=10_000)
 #: the (backend, impl) runs of phase 4c that the CPU repeats: one a backend
 F32_CPU = (("ladder", "auto"), ("bucketed", "kernel_rng"))
 
-#: operations per Z element of the counter stream, for the bound: about 100
-#: integer operations of threefry2x32-20, then log1p, cos, sqrt and three
-#: multiplies, each counted as one
-RNG_OPS = 106
+#: INT32 operations per Z element of the counter stream (threefry.cuh), for
+#: the bound: 20 rounds of an add, a rotate and an xor, five key injections
+#: of two adds, the first key add, the counter's shift-or and each output
+#: word's shift and or; the key schedule's constants are computed once a
+#: thread, not per element
+RNG_INT_OPS = 76
+#: INT32 and FP64 (outside the tensor cores) lanes of an H100 SM, and its SMs
+LANES_PER_SM, SMS = 64, 132
+#: FP64 instructions per float64 Z element, counted by phase 1 from row 5's
+#: SASS (``rng_fp64_ops``)
+RNG_FP64_OPS = {}
+#: phases 4b and 4c: the evaluations their runs spend (the RNG kernels keep
+#: the stream's bits wherever Z is drawn, so the runs keep their
+#: trajectories)
+FEVALS_4B = 49_908
+FEVALS_4C = 9_996
+#: Z elements a thread of row 5's float64 kernel draws in its wide form
+#: (16 bytes of columns of one row, ``cma_gen_sample.cu``)
+RNG_ELEMENTS_PER_THREAD = 2
 
 
 def emit(obj) -> None:
@@ -568,10 +601,43 @@ def time_ms(fn, reps=10, short_reps=200, short_ms=0.2) -> float:
     return run(short_reps) if ms < short_ms else ms
 
 
-def bound(flops, nbytes, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_mem = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+@functools.lru_cache(maxsize=1)
+def sm_clock_hz() -> float:
+    """The card's top SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    return 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def bound_parts(flops, nbytes, dtype, draws=0):
+    """The least ms of each resource a kernel's work needs: ``bytes`` over
+    the memory's rate, ``operations`` (the GEMM's) over the peak of
+    ``dtype``, and for ``draws`` Z elements of the counter stream its
+    ``int32`` operations and ``fp64`` instructions, each over the SMs'
+    lanes at the top SM clock."""
+    parts = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "operations": flops / PEAK_FLOPS[dtype] * 1e3}
+    if draws:
+        rate = LANES_PER_SM * SMS * sm_clock_hz()
+        parts["int32"] = draws * RNG_INT_OPS / rate * 1e3
+        parts["fp64"] = draws * RNG_FP64_OPS["f64"] / rate * 1e3
+    return parts
+
+
+def issue_floor_ms(draws):
+    """The least ms of ``draws`` Z elements of row 5's kernel by its issued
+    instructions alone: 4 warp instructions a clock an SM (128 lanes) at
+    the top SM clock."""
+    return draws * RNG_FP64_OPS["issued"] / (
+        4 * 32 * SMS * sm_clock_hz()) * 1e3
+
+
+def bound(flops, nbytes, dtype, draws=0):
+    """(least ms, what binds: ``bytes`` or ``operations``)."""
+    parts = bound_parts(flops, nbytes, dtype, draws)
+    by = max(parts, key=parts.get)
+    return parts[by], "bytes" if by == "bytes" else "operations"
 
 
 # ---------------------------------------------------------------------------
@@ -588,10 +654,55 @@ def phase_build(dev):
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
+    RNG_FP64_OPS.update(rng_fp64_ops(libs["cma_gen_sample"]))
     emit({"phase": "build", "gpu": gpu_line(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": _build.build_seconds, "ptxas": ptxas,
-          "tensor_sass": tensor_sass(libs)})
+          "tensor_sass": tensor_sass(libs),
+          "rng_fp64_ops_per_element": RNG_FP64_OPS,
+          "sm_clock_mhz": sm_clock_hz() / 1e6})
+
+
+def sass_functions(lib):
+    """Per kernel of a built library, its SASS lines (``cuobjdump``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+#: a SASS instruction line: its address, then the instruction
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4}\*/\s+([^;]*);")
+#: the FP64 arithmetic instructions of a draw (FMA, add, multiply)
+FP64_OPS = ("DFMA", "DADD", "DMUL")
+
+
+def rng_fp64_ops(lib):
+    """Per float64 Z element of row 5's wide (16-byte) kernel, the FP64
+    arithmetic instructions (``f64``) and all the instructions
+    (``issued``) of its main body: its SASS up to the first EXIT that no
+    predicate guards, past which lie the out-of-line slow paths the body
+    calls under guards (cos's reduction of large arguments among them:
+    2π·u2 < 2π never takes it), over the elements a thread draws there.
+    The body's rare inline branches are counted too."""
+    funcs = sass_functions(lib)
+    name = next(k for k in funcs if "z_rng_kernelIdLb1E" in k)
+    main = []
+    for line in funcs[name].splitlines():
+        m = SASS_LINE.search(line)
+        if not m:
+            continue
+        ins = m.group(1).split()
+        main.append(ins[1] if ins[0].startswith("@") else ins[0])
+        if ins[0] == "EXIT":
+            break
+    ops = sum(op.split(".")[0] in FP64_OPS for op in main)
+    return {"f64": ops / RNG_ELEMENTS_PER_THREAD,
+            "issued": len(main) / RNG_ELEMENTS_PER_THREAD}
 
 
 def tensor_sass(libs):
@@ -662,6 +773,9 @@ def phase_kernels(dev):
             want = ref.sample_z_rng(seeds, lam, n, dtype)
             errs_here["cma_sample_z_rng"] = compare(
                 "cma_sample_z_rng", (got,), (want,), dtype)
+            repeat_on_poison("cma_sample_z_rng", lambda: (
+                cma_gen.sample_z_rng(seeds, lam, n, dtype),), (got,))
+            drawn_as_loaded(a, sep, seeds, got)
             torch.cuda.synchronize()
             for k, e in errs_here.items():
                 if dtype == torch.float64:
@@ -669,8 +783,7 @@ def phase_kernels(dev):
                 rows.append({"kernel": k, "shape": [S, lam, n],
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1],
-                             **({"repeat_bit_identical": True}
-                                if k != "cma_sample_z_rng" else {})})
+                             "repeat_bit_identical": True})
     rows += strategy_kernel_checks(dev, errs)
     rows += lm_kernel_checks(dev, errs)
     bf16_worst = {name: max(r["max_elem_ratio"] for r in rows
@@ -681,6 +794,47 @@ def phase_kernels(dev):
           "bf16_worst_share_of_limit": bf16_worst,
           "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
+
+
+def drawn_as_loaded(a, sep, seeds, Z):
+    """Rows 3-4 against rows 1-2 on row 5's Z of the same seeds, bit for
+    bit; an RNG call that draws Z in the kernel allocates no Z scratch."""
+    S, lam, n = Z.shape
+    r = rng_args(a)
+
+    def rng_call(name, call):
+        return (no_scratch(name, call, Z) if sample_plan.draws_z(n)
+                else call())
+    same_bits("cma_gen_sample_rng against cma_gen_sample on row 5's Z",
+              rng_call("cma_gen_sample_rng",
+                       lambda: cma_gen.gen_sample_rng(*r.values(), seeds,
+                                                      lam)),
+              cma_gen.gen_sample(**r, Z=Z))
+    same_bits("cma_gen_sample_rng_eval against cma_gen_sample_eval on row "
+              "5's Z", rng_call(
+                  "cma_gen_sample_rng_eval",
+                  lambda: cma_gen.gen_sample_rng_eval(*r.values(), seeds,
+                                                      lam, *sep)),
+              cma_gen.gen_sample_eval(*r.values(), Z, *sep))
+
+
+def no_scratch(name, call, Z):
+    """``call()``'s outputs, once the allocator saw it allocate no block
+    beyond them the size of Z or larger (a second call, after a first one
+    made the layout's table)."""
+    call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = call()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - sum(
+        -(-t.untyped_storage().nbytes() // 512) * 512 for t in out)
+    if extra >= Z.numel() * Z.element_size():
+        raise AssertionError(f"{name}: {extra} bytes beyond its outputs, a "
+                             f"Z of {tuple(Z.shape)} is "
+                             f"{Z.numel() * Z.element_size()}")
+    return out
 
 
 def strategy_kernel_checks(dev, errs):
@@ -871,12 +1025,14 @@ def bucketed_padding(res, lam_start):
             "waste": padded / max(useful, 1)}
 
 
-def check_bucketed_run(name, log, launches, sample_kernel):
-    """One call of the in-kernel RNG sample kernel (the counter-stream Z
-    kernel, then the sample kernel) and one update launch per segment
-    step, none of the Z-operand kernels, and one pull per boundary."""
+def check_bucketed_run(name, log, launches, sample_kernel, n):
+    """One call of the in-kernel RNG sample kernel and one update launch
+    per segment step, and one pull per boundary.  At width n the RNG call
+    draws Z in the kernel (n ≤ 64: no row-5 launch) or launches row 5's
+    kernel first (one a step); none of the Z-operand kernels runs."""
     steps = sum(sg["gens"] for sg in log["segments"])
-    mine = (sample_kernel, "cma_sample_z_rng", "cma_gen_update")
+    mine = (sample_kernel, "cma_gen_update") + (
+        () if sample_plan.draws_z(n) else ("cma_sample_z_rng",))
     others = {k: v for k, v in launches.items() if k not in mine}
     if any(launches[k] != steps for k in mine) or any(others.values()):
         raise AssertionError(f"{name}: launches {launches} for {steps} "
@@ -902,7 +1058,7 @@ def phase_bucketed_main(dev, ladder_ms_per_gen):
     wall = time.perf_counter() - t0
     launches = dict(cma_gen.LAUNCHES)
     steps = check_bucketed_run("bucketed f8", res.driver, launches,
-                               "cma_gen_sample_rng")
+                               "cma_gen_sample_rng", n)
     d0 = res.descents[0]
     if (steps != gens or res.total_fevals != LAM_START * gens
             or not np.isfinite(res.best_f)
@@ -1091,7 +1247,7 @@ def phase_bucketed_restarts(dev):
     wall = time.perf_counter() - t0
     launches = dict(cma_gen.LAUNCHES)
     steps = check_bucketed_run("bucketed f1", res.driver, launches,
-                               "cma_gen_sample_rng_eval")
+                               "cma_gen_sample_rng_eval", n)
     err = res.best_f - float(inst.f_opt)
     if not err <= 1e-8:
         raise AssertionError(f"bucketed f1 run: best_f - f_opt = {err}")
@@ -1099,8 +1255,9 @@ def phase_bucketed_restarts(dev):
                                     for d in res.descents):
         raise AssertionError("bucketed f1 run: descents "
                              f"{[d.lam for d in res.descents]}")
-    if res.total_fevals > budget:
-        raise AssertionError(f"bucketed f1 run spent {res.total_fevals}")
+    if res.total_fevals != FEVALS_4B:
+        raise AssertionError(f"bucketed f1 run spent {res.total_fevals}, "
+                             f"expected {FEVALS_4B}")
 
     eng = bucketed.BucketedLadderEngine(n=n, overlap=True, device=dev, **kw)
     torch.cuda.synchronize()
@@ -1159,9 +1316,10 @@ def phase_float32(dev):
                 bound = 8 * float(np.spacing(np.float32(f_opt)))
                 lams = [x.lam for x in res.descents]
                 where = f"float32 {backend} {impl} on {d}"
-                if not (budget - lams[-1] < res.total_fevals <= budget):
+                if res.total_fevals != FEVALS_4C:
                     raise AssertionError(f"{where}: fevals "
-                                         f"{res.total_fevals}")
+                                         f"{res.total_fevals}, expected "
+                                         f"{FEVALS_4C}")
                 if not err <= bound:
                     raise AssertionError(f"{where}: best_f - f_opt = {err} "
                                          f"> {bound}")
@@ -1173,7 +1331,7 @@ def phase_float32(dev):
                                  for x in res.descents], "wall_s": wall}
             runs[f"{backend}_{impl}"] = out
     ran = ("cma_gen_sample_eval", "cma_gen_sample_rng_eval",
-           "cma_sample_z_rng", "cma_gen_update")
+           "cma_gen_update")
     if not all(launches[k] for k in ran):
         raise AssertionError(f"float32 runs launched {launches}")
     emit({"phase": "float32_f1", **F32, "f_err_bound": bound, "runs": runs,
@@ -1835,7 +1993,8 @@ def lm_kernel_rows(dev, errs, launches):
 
 def kernel_work(shape, fid, dev):
     """Per kernel, float64 at ``shape``: (kernel call, plain call, one
-    PyTorch call of the same product, operations, bytes)."""
+    PyTorch call of the same product, the GEMM's operations, bytes, Z
+    elements drawn from the counter stream)."""
     S, lam, n = shape["S"], shape["lam"], shape["n"]
     a, sep = sample_inputs(S, lam, n, torch.float64, dev, fid=fid)
     u = update_inputs(S, lam, n, torch.float64, dev, zero_slot=False)
@@ -1846,40 +2005,64 @@ def kernel_work(shape, fid, dev):
     ys = (u["w"].sqrt()[..., None] * u["Y"]).contiguous()
     yst = ys.transpose(-1, -2)
     gemm_flops = 2.0 * S * lam * n * n
-    rng_flops = float(RNG_OPS) * S * lam * n
+    draws = S * lam * n
     seeds = seed_words(S, dev)
     r = list(rng_args(a).values())
     return {
         "cma_gen_sample": (
             lambda: cma_gen.gen_sample(**a), lambda: ref.gen_sample(**a),
             lambda: torch.matmul(zd, bt), gemm_flops,
-            esz * S * (3 * lam * n + n * n + 2 * n + 1)),
+            esz * S * (3 * lam * n + n * n + 2 * n + 1), 0),
         "cma_gen_sample_eval": (
             lambda: kernel_eval(a, sep),
             lambda: ref.gen_sample_eval(**a, sep=sep),
             lambda: torch.matmul(zd, bt), gemm_flops + 4.0 * S * lam * n,
-            esz * S * (2 * lam * n + lam + n * n + 4 * n + 1)),
+            esz * S * (2 * lam * n + lam + n * n + 4 * n + 1), 0),
         "cma_gen_update": (
             lambda: cma_gen.gen_update(**u), lambda: ref_update(u),
             lambda: torch.matmul(yst, ys),
             S * (n * (n + 1) * lam_nz + 2.0 * lam_nz * n + 4.0 * n * n),
-            esz * (S * (3 * n * n + lam_nz * n + lam + 8 * n + 7))),
+            esz * (S * (3 * n * n + lam_nz * n + lam + 8 * n + 7)), 0),
         "cma_gen_sample_rng": (
             lambda: cma_gen.gen_sample_rng(*r, seeds, lam),
             lambda: ref.gen_sample_rng(*r, seeds, lam),
-            lambda: torch.matmul(zd, bt), gemm_flops + rng_flops,
-            esz * S * (2 * lam * n + n * n + 2 * n + 1) + 8 * S),
+            lambda: torch.matmul(zd, bt), gemm_flops,
+            esz * S * (2 * lam * n + n * n + 2 * n + 1) + 8 * S, draws),
         "cma_gen_sample_rng_eval": (
             lambda: cma_gen.gen_sample_rng_eval(*r, seeds, lam, *sep),
             lambda: ref.gen_sample_rng_eval(*r, seeds, lam, sep),
             lambda: torch.matmul(zd, bt),
-            gemm_flops + 4.0 * S * lam * n + rng_flops,
-            esz * S * (lam * n + lam + n * n + 4 * n + 1) + 8 * S),
+            gemm_flops + 4.0 * S * lam * n,
+            esz * S * (lam * n + lam + n * n + 4 * n + 1) + 8 * S, draws),
         "cma_sample_z_rng": (
             lambda: cma_gen.sample_z_rng(seeds, lam, n),
-            lambda: ref.sample_z_rng(seeds, lam, n), None, rng_flops,
-            esz * S * lam * n + 8 * S),
+            lambda: ref.sample_z_rng(seeds, lam, n), None, 0.0,
+            esz * S * lam * n + 8 * S, draws),
     }
+
+
+#: the Z-operand call each RNG sample call is held to (rows 3-4 to 1-2)
+LOADED = {"cma_gen_sample_rng": "cma_gen_sample",
+          "cma_gen_sample_rng_eval": "cma_gen_sample_eval"}
+
+
+def kernels_a_call(work):
+    """Per bucketed path, the CUDA kernels one call of rows 1-4 launches at
+    the path's shape (the distinct kernels ``torch.profiler`` records over
+    20 calls): an RNG call as many as its Z-operand call where it draws Z
+    in the kernel, one more (row 5's) elsewhere."""
+    out = {}
+    for p in ("bucketed_rng_f8", "bucketed_rng_f1_restarts"):
+        out[p] = {name: len(profile_update.profile_call(
+            work[p][name][0], 20)["kernels_us"])
+            for name in (*LOADED, *LOADED.values())}
+        extra = 0 if sample_plan.draws_z(PATHS[p][0]["n"]) else 1
+        for rng, loaded in LOADED.items():
+            if out[p][rng] != out[p][loaded] + extra:
+                raise AssertionError(f"{p}: {rng} launches {out[p][rng]} "
+                                     f"kernels a call, {loaded} "
+                                     f"{out[p][loaded]}")
+    return out
 
 
 def phase_table(dev, errs, launches):
@@ -1890,18 +2073,25 @@ def phase_table(dev, errs, launches):
     ``strategy_kernel_rows``."""
     work = {p: kernel_work(shape, fid, dev)
             for p, (shape, fid) in PATHS.items()}
-    rows = []
+    calls = kernels_a_call(work)
+    rows, parts = [], {}
     for name in list(SOURCES)[:6]:
         paths = {}
         for p, w in work.items():
-            kern, plain, lib, flops, nbytes = w[name]
-            b_ms, b_by = bound(flops, nbytes, torch.float64)
+            kern, plain, lib, flops, nbytes, draws = w[name]
+            b_ms, b_by = bound(flops, nbytes, torch.float64, draws)
+            parts[f"{name} {p}"] = {
+                **bound_parts(flops, nbytes, torch.float64, draws),
+                **({"issue_floor": issue_floor_ms(draws)}
+                   if name == "cma_sample_z_rng" else {})}
             shape = PATHS[p][0]
             paths[p] = {"shape": [shape["S"], shape["lam"], shape["n"]],
                         "launches": launches[p][name], "ms": time_ms(kern),
                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
                         "bound_by": b_by,
-                        "library_ms": None if lib is None else time_ms(lib)}
+                        "library_ms": None if lib is None else time_ms(lib),
+                        **({"kernels_a_call": calls[p][name]}
+                           if name in calls.get(p, {}) else {})}
         top = paths["main_path_f8"]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -1913,6 +2103,9 @@ def phase_table(dev, errs, launches):
             "paths": paths})
     rows += strategy_kernel_rows(dev, errs, launches)
     rows += lm_kernel_rows(dev, errs, launches)
+    # the least ms of each resource behind rows 1-6's bounds (bound_parts)
+    emit({"phase": "bound_parts_ms", "sm_clock_mhz": sm_clock_hz() / 1e6,
+          "parts": parts})
     emit({"kernels": rows})
 
 

@@ -14,10 +14,14 @@
   above), then a fixed-order sum of the chunks with the C′ epilogue.  The
   split is ``update_plan``'s; the call counts as one launch.
 * ``gen_sample_rng`` / ``gen_sample_rng_eval`` — replace
-  ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the counter stream
-  of per-slot seeds (``csrc/threefry.cuh``) drawn once into scratch by the
-  Z-only kernel, then the two sample kernels above; one call, counted under
-  both kernels' labels.
+  ``cma_gen_sample_rng`` / ``cma_gen_sample_rng_eval``: the two sample
+  kernels above on the counter stream of per-slot seeds
+  (``csrc/threefry.cuh``).  Where one block spans all n columns (n ≤ 64,
+  ``sample_plan.draws_z``) the kernel draws Z itself: no Z scratch, the
+  launches of the Z-operand call, counted under the call's own label.  On
+  wider rows the Z-only kernel first draws Z into scratch, each element
+  once, then the sample kernel reads it; one call, counted under both
+  kernels' labels.
 * ``sample_z_rng`` — replaces ``cma_sample_z_rng``: the counter stream Z
   alone, one launch.
 
@@ -162,17 +166,25 @@ def gen_sample_eval(m, sigma, B, D, Z, scale, shift, fopt, mode, valid):
     return Y, F
 
 
+def _rng_z(label: str, S: int, lam: int, n: int, dt, dev):
+    """The Z scratch of an RNG call (None where the sample kernel draws Z)
+    and the labels its launches count under."""
+    if sample_plan.draws_z(n):
+        return None, label
+    return (torch.empty((S, lam, n), dtype=dt, device=dev),
+            ("cma_sample_z_rng", label))
+
+
 def gen_sample_rng(m, sigma, B, D, seeds, lam: int):
     """Y, X (S, λ, n) from m (S,n), sigma (S,), B (S,n,n), D (S,n) and the
-    counter stream of ``seeds`` (S, 2), drawn on the card first."""
+    counter stream of ``seeds`` (S, 2), drawn on the card."""
     (S, lam, n), dt, dev, ptrs = _rng_operands(m, sigma, B, D, seeds, lam)
-    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
-    Zs = torch.empty((S, lam, n), dtype=dt, device=dev)
-    Y = torch.empty_like(Zs)
-    X = torch.empty_like(Zs)
-    _launch(_fn(_LIB, "cma_gen_sample_rng", dt),
-            ("cma_sample_z_rng", "cma_gen_sample_rng"), dev, *ptrs,
-            Zs.data_ptr(), lay.tiles.data_ptr(), Y.data_ptr(), X.data_ptr(),
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev, rng=True)
+    Zs, labels = _rng_z("cma_gen_sample_rng", S, lam, n, dt, dev)
+    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
+    X = torch.empty_like(Y)
+    _launch(_fn(_LIB, "cma_gen_sample_rng", dt), labels, dev, *ptrs,
+            _ptr(Zs), lay.tiles.data_ptr(), Y.data_ptr(), X.data_ptr(),
             lay.ntiles, S, lam, n, lay.plan.code, lay.tile_rows)
     return Y, X
 
@@ -183,14 +195,13 @@ def gen_sample_rng_eval(m, sigma, B, D, seeds, lam: int, scale, shift, fopt,
     for a separable fid laid out as in ``gen_sample_eval``."""
     (S, lam, n), dt, dev, ptrs = _rng_operands(m, sigma, B, D, seeds, lam)
     sep = _sep_operands(scale, shift, fopt, mode, valid, S, n, dt, dev)
-    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev)
-    Zs = torch.empty((S, lam, n), dtype=dt, device=dev)
-    Y = torch.empty_like(Zs)
+    lay = sample_plan.slot_layout(_LIB, S, lam, n, dt, dev, rng=True)
+    Zs, labels = _rng_z("cma_gen_sample_rng_eval", S, lam, n, dt, dev)
+    Y = torch.empty((S, lam, n), dtype=dt, device=dev)
     F, Fpart = _f_outputs(S, lam, dt, dev, lay.plan.eval_partials)
-    _launch(_fn(_LIB, "cma_gen_sample_rng_eval", dt),
-            ("cma_sample_z_rng", "cma_gen_sample_rng_eval"), dev, *ptrs,
-            Zs.data_ptr(), *sep, lay.tiles.data_ptr(), Y.data_ptr(),
-            F.data_ptr(), _ptr(Fpart), lay.ntiles, S, lam, n, lay.plan.code,
+    _launch(_fn(_LIB, "cma_gen_sample_rng_eval", dt), labels, dev, *ptrs,
+            _ptr(Zs), *sep, lay.tiles.data_ptr(), Y.data_ptr(), F.data_ptr(),
+            _ptr(Fpart), lay.ntiles, S, lam, n, lay.plan.code,
             lay.tile_rows)
     return Y, F
 

@@ -57,12 +57,32 @@
 //
 // Deterministic: no atomics, every sum in a fixed order, so a second launch
 // on the same inputs gives the same bits.
+//
+// Where the tile plan's Z slabs come from, the Z-source policy:
+//
+// * Z_LOAD: Z is an operand in device memory, copied into the slab ring by
+//   cp.async as B is (rows 1, 2 and 7, and rows 3-4 on wide rows).
+// * Z_DRAW: Z is the counter stream of the slot's seed words
+//   (threefry.cuh), drawn in the kernel (rows 3-4 where n <= TILE_COLS):
+//   element (r, k) of slot g is threefry_normal(seed[g], r - g lam, k),
+//   zero outside the row tile or n, so the slabs hold the values and zeros
+//   the load policy would copy from row 5's Z, and Y, X and F keep their
+//   bits.  There one column block spans the row and the STAGES slabs of
+//   the ring hold all of its k, so the block draws its whole row tile once,
+//   behind the first copies of B, before its stages run.  Wider rows have
+//   several column blocks that need the same Z: drawn in each, every
+//   element would be drawn once per column block, and shared over a
+//   thread-block cluster through distributed shared memory, the blocks ran
+//   in lockstep behind cluster barriers and lost to the two launches of
+//   row 5 and the load form at n = 1000 (PERF.md), so rows 3-4 take those
+//   there.
 #pragma once
 
 #include <cmath>
 #include <cstdint>
 
 #include "cma_gen_common.cuh"
+#include "threefry.cuh"
 
 namespace cma_sample_gemm {
 
@@ -83,6 +103,7 @@ constexpr int KSTEP = 16;                    // k columns of a DMMA step
 static_assert(TILE_ROWS % (16 * MI) == 0, "whole warps a tile");
 static_assert(BK % KSTEP == 0 && STAGES >= 2, "whole DMMA steps a stage");
 static_assert(TILE_COLS % STREAM_COLS == 0, "F groups tile a column tile");
+static_assert(STAGES * BK >= TILE_COLS, "the draw policy's ring holds a row");
 constexpr int KC = 64;                       // stream plan: k columns a stage
 static_assert(KC % KSTEP == 0, "whole DMMA steps a stream stage");
 constexpr int S_STAGES = 3;                  // stream plan: ring depth
@@ -94,6 +115,11 @@ constexpr unsigned FULL = 0xffffffffu;
 
 enum Epi { E_X = 0, E_AFFINE = 1, E_YX = 2, E_EVAL = 3 };
 enum Kind { K_TILE = 0, K_STREAM = 1 };
+enum ZSrc { Z_LOAD = 0, Z_DRAW = 1 };
+
+// Whether an RNG call at width n draws Z inside the sample kernel (one
+// column block spans the row), else it takes row 5's Z from device memory.
+__host__ __device__ constexpr bool draws_z(int n) { return n <= TILE_COLS; }
 
 inline int sample_constant(int which) {
   switch (which) {
@@ -111,7 +137,8 @@ struct SampleArgs {
   const T* sigma;
   const T* B;
   const T* D;
-  const T* Z;
+  const T* Z;           // Z_LOAD
+  const long long* seeds;  // Z_DRAW: (groups, 2), the low 32 bits are words
   const int* tiles;     // (ntiles, 3): group, first row, end row
   const T* scale;       // E_EVAL: (groups, n)
   const T* shift;       // E_EVAL: (groups, n)
@@ -125,7 +152,7 @@ struct SampleArgs {
   int ntiles;
   int rows;             // rows of Z
   int n;
-  int lam;              // E_EVAL: rows of a group (the groups are slots)
+  int lam;              // E_EVAL, Z_DRAW: rows of a group (a slot)
   int kind;
   int tile_rows;        // stream plan: the most rows of a table entry
   int mtiles;           // stream plan: warps a block (launcher)
@@ -243,6 +270,36 @@ __device__ __forceinline__ void dmma_step(double (&acc)[4], const double* As,
 // ---------------------------------------------------------------------------
 // tile plan
 // ---------------------------------------------------------------------------
+
+// The draw policy's Z of a row tile (rows [r0, r1) of slot g, all of its
+// n <= STAGES BK columns of k) into the STAGES slabs of the Z ring
+// (a[k / BK][row][k % BK]): each warp draws runs of 32 consecutive
+// elements of the tile's live rows over all STAGES BK columns, zero where
+// k >= n, and the rows past the tile are zero.  (Drawing only the live
+// rows' n columns, with a division by n an element, measured slower.)
+template <typename T, int THREADS>
+__device__ __forceinline__ void draw_tile(T (*a)[TILE_ROWS][LDK],
+                                          const SampleArgs<T>& args, int g,
+                                          int r0, int r1, int tid) {
+  constexpr int W = STAGES * BK;
+  const uint32_t w0 = static_cast<uint32_t>(args.seeds[2 * g]);
+  const uint32_t w1 = static_cast<uint32_t>(args.seeds[2 * g + 1]);
+  const int row0 = r0 - g * args.lam;
+  const int live = r1 - r0;
+  for (int e = tid; e < live * W; e += THREADS) {
+    const int i = e / W;
+    const int k = e % W;
+    a[k / BK][i][k % BK] =
+        k < args.n ? cma_rng::threefry_normal<T>(
+                         w0, w1, static_cast<uint32_t>(row0 + i),
+                         static_cast<uint32_t>(k))
+                   : T(0);
+  }
+  for (int e = live * W + tid; e < TILE_ROWS * W; e += THREADS) {
+    const int k = e % W;
+    a[k / BK][e / W][k % BK] = T(0);
+  }
+}
 
 template <typename T>
 struct TileSmem {
@@ -377,7 +434,7 @@ struct TileMath<float> {
   }
 };
 
-template <typename T, int EPI, bool WIDE>
+template <typename T, int EPI, bool WIDE, int ZSRC>
 __global__ void __launch_bounds__(TileMath<T>::THREADS)
     tile_kernel(const SampleArgs<T> a) {
   using M = TileMath<T>;
@@ -422,11 +479,13 @@ __global__ void __launch_bounds__(TileMath<T>::THREADS)
     const int slot = st % STAGES;
     const int k0 = st * BK;
     const bool kok = k0 + kk < n;
+    if constexpr (ZSRC == Z_LOAD) {
 #pragma unroll
-    for (int q = 0; q < CZ; ++q) {
-      const bool ok = kok && zoff[q] >= 0;
-      cma_gen::cp_async<BYTES>(&sm.a[slot][base_i + q * RSTEP][kk],
-                               ok ? a.Z + zoff[q] + k0 : a.Z, ok);
+      for (int q = 0; q < CZ; ++q) {
+        const bool ok = kok && zoff[q] >= 0;
+        cma_gen::cp_async<BYTES>(&sm.a[slot][base_i + q * RSTEP][kk],
+                                 ok ? a.Z + zoff[q] + k0 : a.Z, ok);
+      }
     }
 #pragma unroll
     for (int q = 0; q < CB; ++q) {
@@ -448,6 +507,9 @@ __global__ void __launch_bounds__(TileMath<T>::THREADS)
     if (p < nst) issue(p);
     cma_gen::cp_async_commit();
   }
+  // the draw policy's Z, all of it (nst <= STAGES: no slab is reused)
+  if constexpr (ZSRC == Z_DRAW)
+    draw_tile<T, M::THREADS>(sm.a, a, g, r0, r1, tid);
   for (int st = 0; st < nst; ++st) {
     cma_gen::cp_async_wait<STAGES - 2>();
     __syncthreads();
@@ -687,17 +749,17 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename T, int EPI, bool WIDE>
+template <typename T, int EPI, bool WIDE, int ZSRC>
 int launch_plan(const SampleArgs<T>& a, cudaStream_t stream, int& col_blocks) {
   int err;
   if (a.kind == K_TILE) {
+    constexpr auto tile = tile_kernel<T, EPI, WIDE, ZSRC>;
     const size_t smem = sizeof(TileSmem<T>);
-    if ((err = cma_gen::set_smem<tile_kernel<T, EPI, WIDE>>(smem)) != 0)
-      return err;
+    if ((err = cma_gen::set_smem<tile>(smem)) != 0) return err;
     col_blocks = cdiv(a.n, TILE_COLS);
-    tile_kernel<T, EPI, WIDE>
-        <<<dim3(col_blocks, a.ntiles), TileMath<T>::THREADS, smem, stream>>>(a);
-  } else {
+    tile<<<dim3(col_blocks, a.ntiles), TileMath<T>::THREADS, smem, stream>>>(
+        a);
+  } else if constexpr (ZSRC == Z_LOAD) {
     const size_t smem = stream_smem_bytes<T>(a.mtiles);
     if ((err = cma_gen::set_smem<stream_kernel<T, EPI, WIDE>>(smem)) != 0)
       return err;
@@ -709,9 +771,10 @@ int launch_plan(const SampleArgs<T>& a, cudaStream_t stream, int& col_blocks) {
   return cma_gen::launch_status();
 }
 
-// One call of the plan a.kind (one launch, or two for E_EVAL with more
-// than one column block).
-template <typename T, int EPI>
+// One call of the plan a.kind with Z from ZSRC (one launch, or two for
+// E_EVAL with more than one column block); the draw policy runs only in the
+// tile plan where draws_z(n).
+template <typename T, int EPI, int ZSRC = Z_LOAD>
 int launch_sample(SampleArgs<T> a, cudaStream_t stream) {
   if (a.ntiles == 0) return 0;
   // copies address Z and B by int element offsets
@@ -725,11 +788,14 @@ int launch_sample(SampleArgs<T> a, cudaStream_t stream) {
   } else if (a.kind != K_TILE) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (ZSRC == Z_DRAW && (a.kind != K_TILE || !draws_z(a.n) ||
+                        a.seeds == nullptr || a.lam < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool wide = a.n % (16 / sizeof(T)) == 0 && aligned16(a.Z) &&
                     aligned16(a.B) && aligned16(a.D);
   int cols = 0;
-  const int err = wide ? launch_plan<T, EPI, true>(a, stream, cols)
-                       : launch_plan<T, EPI, false>(a, stream, cols);
+  const int err = wide ? launch_plan<T, EPI, true, ZSRC>(a, stream, cols)
+                       : launch_plan<T, EPI, false, ZSRC>(a, stream, cols);
   if (err != 0) return err;
   if constexpr (EPI == E_EVAL) {
     if (cols > 1) {

@@ -1,5 +1,7 @@
-// The counter stream of the in-kernel RNG tier, drawn by z_rng_kernel
-// (cma_gen_sample.cu), which the RNG sample calls launch first.
+// The counter stream of the in-kernel RNG tier, drawn into the sample
+// kernels' Z slabs by their draw policy (sample_gemm.cuh, rows 3-4 where
+// one column block spans the row) and alone by z_rng_kernel
+// (cma_gen_sample.cu, row 5, which rows 3-4 launch first on wider rows).
 //
 // Port of repro/kernels/ref.py:80-136 (_threefry2x32, _bits_to_unit,
 // threefry_normal): Z[s, r, c] = sqrt(-2 log1p(-u1)) cos(2 pi u2), where

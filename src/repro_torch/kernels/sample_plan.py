@@ -15,6 +15,14 @@ Both plans compute every element in the same steps, so the plan a call
 takes does not change its bits: a call of λ rows gives the first rows of a
 wider call, as the RNG tier's bucket property needs.
 
+The RNG calls (rows 3-4) draw Z inside the kernel where one block spans
+the row (``draws_z``: n ≤ ``TILE_COLS``, always the tile plan); wider rows
+take row 5's Z from device memory.  Since every element's bits depend only
+on (seed, row, column), a drawing call may cut its row tiles shorter than
+the Z-operand call (``rng_tile_rows``): a block then draws its whole tile
+alone, so the tiles hold ``RNG_ROWS`` rows and a call has more blocks to
+draw in.
+
 Pure Python, so the CPU tests check it.  The four constants mirror the
 kernel's: ``check_library`` reads them back from each built library
 through its query entry point before the first launch of a shape, and a
@@ -35,6 +43,8 @@ TILE_ROWS, TILE_COLS = 64, 64
 STREAM_ROWS, STREAM_COLS = 96, 8
 #: the constants in the order of the kernels' ``*_constant(which)`` query
 CONSTANTS = ("TILE_ROWS", "TILE_COLS", "STREAM_ROWS", "STREAM_COLS")
+#: the row tiles of an RNG call that draws Z in the kernel
+RNG_ROWS = 8
 #: the plans, in the order of the kernels' ``kind`` code
 KINDS = ("tile", "stream")
 
@@ -82,6 +92,18 @@ def sample_plan(rows_per_group: int, groups: int, n: int,
                       col_tiles=_cdiv(n, cols))
 
 
+def draws_z(n: int) -> bool:
+    """Whether an RNG call at width n draws Z inside the sample kernel (one
+    column block spans the row), as the kernel's ``draws_z``."""
+    return n <= TILE_COLS
+
+
+def rng_tile_rows(plan: SamplePlan) -> int:
+    """The row tiles of an RNG call: ``RNG_ROWS`` where it draws Z in the
+    kernel, else the plan's."""
+    return RNG_ROWS if draws_z(plan.n) else plan.rows
+
+
 @functools.lru_cache(maxsize=64)
 def tile_table(starts: tuple, tile_rows: int, device: torch.device):
     """(group, first row, end row) of every row tile, at most ``tile_rows``
@@ -118,22 +140,24 @@ def check_library(lib_name: str, dtype: torch.dtype) -> None:
 
 @functools.lru_cache(maxsize=256)
 def layout(lib_name: str, starts: tuple, n: int, dtype: torch.dtype,
-           device: torch.device) -> Layout:
+           device: torch.device, rng: bool = False) -> Layout:
     """The layout of a call over the row ranges ``starts`` (G + 1 offsets)
-    at width n, for the kernels of ``lib_name`` on ``device``; the
-    library's constants are checked once per shape."""
+    at width n, for the kernels of ``lib_name`` on ``device``, with the
+    RNG calls' row tiles where ``rng``; the library's constants are checked
+    once per shape."""
     sizes = [b - a for a, b in zip(starts, starts[1:])]
     largest = max(sizes, default=0)
     plan = sample_plan(largest, len(sizes), n, dtype)
     if device.type == "cuda":
         check_library(lib_name, dtype)
-    tiles = tile_table(starts, plan.rows, device)
-    return Layout(plan, tiles, tiles.shape[0], min(largest, plan.rows))
+    rows = rng_tile_rows(plan) if rng else plan.rows
+    tiles = tile_table(starts, rows, device)
+    return Layout(plan, tiles, tiles.shape[0], min(largest, rows))
 
 
 @functools.lru_cache(maxsize=256)
 def slot_layout(lib_name: str, S: int, lam: int, n: int, dtype: torch.dtype,
-                device: torch.device) -> Layout:
+                device: torch.device, rng: bool = False) -> Layout:
     """``layout`` of S slots of λ rows each."""
     return layout(lib_name, tuple(range(0, S * lam + 1, lam)), n, dtype,
-                  device)
+                  device, rng)

@@ -7,7 +7,14 @@ the stream plan for few rows a group at n = 1000 (λ ≤ 48 and every
 K-Replicated phase), the tile plan at λ = 3072 and wherever one tile spans
 the row (n ≤ 64).  The plan's constants are the kernel's: read here from
 ``csrc/sample_gemm.cuh``, and on the card from each library's query entry
-point (``sample_plan.check_library``)."""
+point (``sample_plan.check_library``).
+
+The RNG calls (rows 3-4) draw Z inside the kernel where one column block
+spans the row (``sample_plan.draws_z``), in row tiles of their own
+(``rng_tile_rows``); wider rows take the Z-operand call's layout on row
+5's Z.  Checked here: where a call draws, the kernel's draw policy may run
+(the tile plan, one column block, every k of the row in its slab ring), and
+every row tile covers the slot."""
 import re
 from pathlib import Path
 
@@ -120,3 +127,73 @@ def test_plan_constants_match_the_kernel(name):
     assert int(cu[name]) == getattr(sample_plan, name)
     query = re.search(r"case (\d+): return " + name + ";", text)
     assert int(query.group(1)) == sample_plan.CONSTANTS.index(name)
+
+
+#: the widths and rows an RNG call may have
+DRAW_NS = (8, 40, 64, 65, 101, 1000)
+DRAW_LAMS = (1, 12, 37, 96, 192, 3072)
+
+
+def header_constants():
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", SOURCE.read_text())}
+
+
+@pytest.mark.parametrize("n", DRAW_NS)
+@pytest.mark.parametrize("lam", DRAW_LAMS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rng_call_draws_where_one_block_spans_the_row(n, lam, dtype):
+    """An RNG call draws Z in the kernel exactly where the kernel's draw
+    policy may run: the tile plan with one column block, every k of the
+    row in the ring's ``STAGES`` slabs of ``BK`` columns, and the eval form
+    finishing F in the block (one launch, as its Z-operand call).
+    Elsewhere its layout is the Z-operand call's, which reads row 5's Z."""
+    cu = header_constants()
+    plain = sample_plan.slot_layout("cma_gen_sample", 1, lam, n, dtype, CPU)
+    lay = sample_plan.slot_layout("cma_gen_sample", 1, lam, n, dtype, CPU,
+                                  rng=True)
+    assert lay.plan == plain.plan
+    if sample_plan.draws_z(n):
+        assert n <= cu["TILE_COLS"] <= cu["STAGES"] * cu["BK"]
+        assert lay.plan.kind == "tile" and lay.plan.col_tiles == 1
+        assert lay.plan.eval_partials == 0
+        assert lay.tile_rows <= sample_plan.RNG_ROWS <= cu["TILE_ROWS"]
+    else:
+        assert n > cu["TILE_COLS"]
+        assert lay.tile_rows == plain.tile_rows
+        assert torch.equal(lay.tiles, plain.tiles)
+
+
+def test_draw_rule_matches_the_kernel():
+    """``draws_z`` is the kernel's rule, and the kernel's ring holds a
+    whole row where it draws."""
+    text = SOURCE.read_text()
+    rule = re.search(r"constexpr bool draws_z\(int n\) \{ return ([^;]*);",
+                     text)
+    assert rule.group(1) == "n <= TILE_COLS"
+    assert "static_assert(STAGES * BK >= TILE_COLS" in text
+    cols = sample_plan.TILE_COLS
+    assert sample_plan.draws_z(cols) and not sample_plan.draws_z(cols + 1)
+
+
+@pytest.mark.parametrize("lam", DRAW_LAMS)
+@pytest.mark.parametrize("n", [40, 64, 65, 1000])
+def test_rng_row_tiles_cover_the_slot(lam, n):
+    """An RNG call's table covers every row once, in order; where it draws
+    Z in the kernel its tiles hold ``RNG_ROWS`` rows, elsewhere the plan's,
+    as the Z-operand call's table does."""
+    plain = sample_plan.slot_layout("cma_gen_sample", 1, lam, n,
+                                    torch.float64, CPU)
+    lay = sample_plan.slot_layout("cma_gen_sample", 1, lam, n, torch.float64,
+                                  CPU, rng=True)
+    rows = sample_plan.rng_tile_rows(lay.plan)
+    covered = []
+    for _, r0, r1 in lay.tiles.tolist():
+        assert r1 - r0 <= rows
+        covered += list(range(r0, r1))
+    assert covered == list(range(lam))
+    if n <= sample_plan.TILE_COLS:
+        assert rows == sample_plan.RNG_ROWS
+        assert lay.ntiles == -(-lam // sample_plan.RNG_ROWS)
+    else:
+        assert rows == lay.plan.rows and lay.ntiles == plain.ntiles

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Per-launch device times of the generation kernels: the update (row 6),
-the sample kernels (rows 1-4, and row 5 where an RNG call launches it), the
+the sample kernels (rows 1-4) and the counter stream alone (row 5), the
 grouped sample kernel (row 7), the rank-μ update (row 8) and the RWKV-6
 WKV kernel (row 10).
 
@@ -11,13 +11,17 @@ so the same script profiles another tree of the port, e.g. a parent commit
 unpacked with ``git archive``.  float64, one slot.  The update at
 (λ, n) = (3072, 40) and (3072, 1000) with half the rows weighted (CMA-ES
 weights in a random order, as a generation hands them over); the sample
-kernels at their paths' shapes: row 1 at (3072, 1000) (``main_path_f8``),
-row 2 at (3072, 40) (``ipop_f1_restarts``) and (3072, 1000), row 3 at
-(12, 1000) (``bucketed_rng_f8``) and (3072, 1000), row 4 at (96, 40)
-(``bucketed_rng_f1_restarts``) and (3072, 1000), with the f1 coefficients
-for the eval forms; row 7 at the K-Distributed heap of 512 devices × 12
-rows (nine descents) and K-Replicated's phases of 8 devices × 12 rows
-(G = 8, 4, 2, 1 groups), n = 1000; row 8 at chip_smoke.py phase 2's
+kernels at their paths' shapes, each RNG form (rows 3, 4) beside its
+Z-operand form (rows 1, 2) and row 5: rows 1, 3 and 5 at (12, 1000)
+(``bucketed_rng_f8``) and (3072, 1000) (``main_path_f8``), rows 2, 4 and 5
+at (96, 40) (``bucketed_rng_f1_restarts``), at every bucket 12·2ᵏ,
+k = 0…7, of n = 40 that ``chip_smoke.py`` phase 2 checks, and at
+(3072, 40) (``ipop_f1_restarts``) and (3072, 1000), with the f1
+coefficients for the eval forms (an RNG call at n = 1000 launches row 5,
+then the Z-operand kernel; at n = 40 one kernel that draws Z); row 7 at
+the K-Distributed heap of 512 devices × 12 rows (nine descents) and
+K-Replicated's phases of 8 devices × 12 rows (G = 8, 4, 2, 1 groups),
+n = 1000; row 8 at chip_smoke.py phase 2's
 (λ, n) = (12, 1000), (3072, 1000) and (192, 40), half the rows weighted,
 each beside its library call (``torch.matmul``, as ``chip_smoke.py`` times
 it); row 10 at rwkv6-3b's prefill (4, 1024, 40 heads, D = 64) in bfloat16
@@ -30,8 +34,9 @@ may be fewer than ``N``), the launches recorded, the sum of the kernels'
 µs (each kernel runs once a call in every call profiled here), the
 CUDA-event ms of one call (``N`` calls in a row) and the host µs a call
 takes to return (``N`` calls in a row, no synchronisation inside): where
-the host µs exceed the device µs, the call is host-bound.  Needs a CUDA
-device; it never falls back to the CPU.  ``chip_smoke.py`` phase 5 times
+the host µs exceed the device µs, the call is host-bound.  ``kernels``
+gives the distinct CUDA kernels a call launches.  Needs a CUDA device; it
+never falls back to the CPU.  ``chip_smoke.py`` phase 5 times
 rows 8 and 10 with ``profile_call``.
 """
 from __future__ import annotations
@@ -47,14 +52,13 @@ import numpy as np
 import torch
 
 UPDATE_SHAPES = [(1, 3072, 40), (1, 3072, 1000)]
-#: (kernel, (S, λ, n)) of rows 1-4
-SAMPLE_SHAPES = [("cma_gen_sample", (1, 3072, 1000)),
-                 ("cma_gen_sample_eval", (1, 3072, 40)),
-                 ("cma_gen_sample_eval", (1, 3072, 1000)),
-                 ("cma_gen_sample_rng", (1, 12, 1000)),
-                 ("cma_gen_sample_rng", (1, 3072, 1000)),
-                 ("cma_gen_sample_rng_eval", (1, 96, 40)),
-                 ("cma_gen_sample_rng_eval", (1, 3072, 1000))]
+#: (kernel, (S, λ, n)) of rows 1-5: each RNG form beside its Z-operand
+#: form and the stream alone
+_YX = ("cma_gen_sample", "cma_gen_sample_rng", "cma_sample_z_rng")
+_EVAL = ("cma_gen_sample_eval", "cma_gen_sample_rng_eval", "cma_sample_z_rng")
+SAMPLE_SHAPES = ([(k, (1, lam, 1000)) for lam in (12, 3072) for k in _YX]
+                 + [(k, (1, 12 << j, 40)) for j in range(8) for k in _EVAL]
+                 + [(k, (1, 3072, n)) for n in (40, 1000) for k in _EVAL])
 LAM, N7 = 12, 1000
 #: (S, λ, n) of row 8, and (B, S, H, D, dtype) of row 10
 RANK_MU_SHAPES = [(1, 12, 1000), (1, 3072, 1000), (1, 192, 40)]
@@ -92,7 +96,7 @@ def state(G, n, dev, seed=0):
 
 
 def sample_calls(dev):
-    """(label, call) of every sample shape: rows 1-4 and 7."""
+    """(label, call) of every sample shape: rows 1-5 and 7."""
     from repro_torch.core import strategies
     from repro_torch.kernels import cma_gen, cma_sample
     calls = []
@@ -110,7 +114,8 @@ def sample_calls(dev):
                 "cma_gen_sample_eval": (m, sigma, B, D, Z, *sep),
                 "cma_gen_sample_rng": (m, sigma, B, D, seeds, lam),
                 "cma_gen_sample_rng_eval": (m, sigma, B, D, seeds, lam,
-                                            *sep)}[name]
+                                            *sep),
+                "cma_sample_z_rng": (seeds, lam, n)}[name]
         fn = getattr(cma_gen, name.replace("cma_", "", 1))
         calls.append((f"{name} {S},{lam},{n}",
                       lambda fn=fn, args=args: fn(*args)))
@@ -202,7 +207,7 @@ def profile_call(fn, calls: int) -> dict:
         torch.cuda.synchronize()
     evts = [e for e in prof.key_averages() if device_us(e) > 0]
     kernels = {e.key[:80]: device_us(e) / e.count for e in evts}
-    return {"kernels_us": kernels,
+    return {"kernels_us": kernels, "kernels": len(kernels),
             "recorded": {e.key[:80]: e.count for e in evts}, "calls": calls,
             "sum_us": sum(kernels.values()),
             "event_ms": start.elapsed_time(end) / calls, "host_us": host_us}
