@@ -59,7 +59,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element by
    element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value| of
    the element's row, its last axis; the phase's line gives each kernel's
-   worst bf16 element as a share of its limit);
+   worst bf16 element as a share of its limit).  At the campaign shapes
+   (phases 9-9d stack their members on the slot axis): S = 16 members at
+   (λ, n) = (12·2ᵏ, 40), k = 0…8, with the (1, 2) menu's real per-member
+   coefficients (f1 and f2 × instances 1-4 × 2 runs, one member made
+   invalid: modes, scales, shifts and f_opt rows mixed in one launch),
+   rows 1-4 and 6; S = 48 at the same widths, rows 1, 3 and 6; and rows 1
+   and 6 at phase 9d's (24, 3072, 1000), whose update plan (chunks, scratch
+   bytes) the line gives; each against its plain version and bit-identical
+   on a second launch into NaN-filled memory, float64 and float32;
 3. the main path at full size: ``run_ipop`` on BBOB f8 (n=1000, λ_max=3072,
    float64, 64 generations) through the sample and update kernels, with
    their launch counts and the time of one batched ``eigh`` at that width;
@@ -72,15 +80,17 @@ Phases, one JSON line each with its seconds; any failed check raises
    (row 5's kernel, then the Z-operand sample kernel, one call a
    generation); its launches, segments, host pulls (segments + 1), padding
    and ms per generation beside phase 3's;
-3c. the bucketed path at n=8, λ_start=16 on the card and on the CPU (f8,
-   and f1/f2 through the eval-fused kernels; ``auto`` and ``kernel_rng``):
+3c. the bucketed path at n=8, λ_start=16, 3 000 evaluations on the card
+   and on the CPU (f8, and f1/f2 through the eval-fused kernels; ``auto``
+   and ``kernel_rng``):
    every int leaf of the trace and the final carry exactly, every float
    leaf (best values, m, σ, C, the paths) element by element to 1e-9
    (``compare_small_runs``); and on the card bucketed against ladder, the
    ints of every executed generation exactly;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
-   eval-fused sample kernel (n=40, λ_max=3072, 50 000 evaluations: cut
-   from 100 000 to keep the run within half its time limit);
+   eval-fused sample kernel (n=40, λ_max=3072, 10 000 evaluations: cut
+   from 100 000, then from 50 000 in PR 19, to keep the script within its
+   time limit);
 4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
    eval kernel drawing its own Z), which must spend ``FEVALS_4B``
    evaluations, then again with the speculative segment driver
@@ -96,6 +106,42 @@ Phases, one JSON line each with its seconds; any failed check raises
    other generations on the two devices (their stop fires on ulp-level
    noise at the float32 floor), so those are shown, not compared; the
    float32 kernels must have run;
+4d. the host-loop backend: ``run_ipop(backend="hostloop")`` on f1 through
+   the eval-fused kernel (n=40, λ_max=3072, 10 000 evaluations), one host
+   read a chunk: the budget spent but for less than the λ of the rung that
+   could not start, f_opt + 1e-8 reached, a sample and an update launch a
+   step;
+9. ``campaign_bbob24_n40``: ``run_campaign_bucketed`` over the 24 fids ×
+   instances (1, 2) (48 members, n=40, float64, λ_start=12, kmax_exp=8,
+   10 000 evaluations a member, ``impl="auto"``), under ``policy="cover"``
+   and then ``"min"``: every member spends at most 10 000 evaluations, and
+   more than 10 000 less the λ of the rung it ends on unless it retired on
+   the last rung; at most 9 programs (``compiles``); exactly one sample
+   launch (row 1) and one update launch (row 6) a step, whatever the
+   member count; every f1 member at f_opt + 1e-8 (f2 members are
+   reported, not held to a target); ms a step, wall seconds, padding waste
+   and the ECDF per ``bbob.GROUPS`` entry over 51 targets 10²…10⁻⁸;
+9b. ``campaign_sep_rng_n40``: the (1, 2) menu × instances 1-4 × 2 runs (16
+   members) under ``impl="kernel_rng"``: row 4, drawing Z in the kernel,
+   with mixed per-member coefficients, and row 6; the same checks;
+9c. card against CPU at n=8: ``run_campaign`` and ``run_campaign_bucketed``
+   over the menu (1, 2, 8) × instances (1, 2), λ_start=16, kmax_exp=2,
+   1 500 evaluations a member, under ``auto`` and ``kernel_rng``: every int
+   leaf of the traces and the evaluations exactly, the best values to 1e-9
+   (``f_err``); then each of the 24 evaluators at n=40, one call on 64
+   rows, card against CPU on the same instance, to 1e-12 (f16 and f19 1e-9,
+   f17, f18 and f23 1e-11; f7 and f23 up to rows counted as
+   rounding-boundary cases; ``EVAL_RTOL``);
+9d. ``campaign_bbob24_n1000``: ``run_campaign`` (the λ_max-padded ladder,
+   λ_max=3072) over the 24 fids × instance 1 at n=1000, float64, 16
+   generations: rows 1 and 6 at (24, 3072, 1000), one launch each a
+   generation; each member's evaluations the Σλ of its generations that
+   ran, from the trace; ms a generation, the time of one batched ``eigh``
+   of the 24 covariances and peak allocated memory (under 20 GB);
+9e. no fallback: a small ladder (f1, n=8) on the card under
+   ``impl="eager"`` and ``"eager_unfused"`` launches no kernel of
+   ``kernels/csrc`` (none counted, none of their names in a
+   ``torch.profiler`` trace); under ``"auto"`` it does, both ways;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -140,28 +186,28 @@ Phases, one JSON line each with its seconds; any failed check raises
    four evaluations under ``torch.profiler`` (device busy time and share,
    aten calls, the kernels with the most device time);
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4, 4b, 6, 6b, 6c, 7, 7b, 7c and 8) its launches, its time, the plain version's time,
-   one PyTorch call's time (none for the Z stream alone) and the least
-   time the card could take (bound: the largest of the bytes over the
-   memory's rate, the FP64 tensor-core operations, and for rows 3-5 the
-   draw's INT32 operations and its FP64 instructions over their issue
-   rates; a line before it gives each of these parts) at that path's
-   shape (each time over
-   10 launches, or 200 where one takes under 0.2 ms; row 7: at every
-   row layout of its paths; row 8, which no path launches: at phase 2's
-   shapes); the top-level numbers are the phase-3 shape's for rows 1–6,
-   phase 6's layout for row 7, (3072, 1000) for row 8 and the serving
-   prefill's shapes for rows 9 and 10 (bound: bytes over 3.35 TB/s, or the
-   unmasked work over 989 TFLOP/s for row 9's bf16 inputs and 67 for f32
-   and for row 10, which computes in f32 whatever its inputs' type; one
-   SDPA call is row 9's library time, row 10 has none).  Rows 8 and 10
-   also give ``tools/profile_update.py``'s ``profile_call`` over 20 calls
-   beside the wall-clock ms: each kernel's device µs per launch and the
-   launches ``torch.profiler`` recorded, the CUDA-event ms and the host µs
-   of a call.  Rows 1-4 at the bucketed paths' shapes give the CUDA
-   kernels a call launches (from the profiler): an RNG call as many as
-   the Z-operand call of its shape where it draws Z in the kernel (n ≤ 64),
-   one more (row 5's) on wider rows.
+   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c and 9d; the campaign paths
+   at (members, widest bucket, 40) and (24, 3072, 1000)) its launches, its
+   time, the plain version's time, one PyTorch call's time (none for the Z
+   stream alone) and the least time the card could take (bound: the largest
+   of the bytes over the memory's rate, the FP64 tensor-core operations,
+   and for rows 3-5 the draw's INT32 operations and its FP64 instructions
+   over their issue rates; a line before it gives each of these parts) at
+   that path's shape (each time over 10 launches, or 200 where one takes
+   under 0.2 ms; row 7: at every row layout of its paths; row 8, which no
+   path launches: at phase 2's shapes); the top-level numbers are the
+   phase-3 shape's for rows 1–6, phase 6's layout for row 7, (3072, 1000)
+   for row 8 and the serving prefill's shapes for rows 9 and 10 (bound:
+   bytes over 3.35 TB/s, or the unmasked work over 989 TFLOP/s for row 9's
+   bf16 inputs and 67 for f32 and for row 10, which computes in f32
+   whatever its inputs' type; one SDPA call is row 9's library time, row 10
+   has none).  Rows 8 and 10 also give ``tools/profile_update.py``'s
+   ``profile_call`` over 20 calls beside the wall-clock ms: each kernel's
+   device µs per launch and the launches ``torch.profiler`` recorded, the
+   CUDA-event ms and the host µs of a call.  Rows 1-4 at the bucketed
+   paths' shapes give the CUDA kernels a call launches (from the profiler):
+   an RNG call as many as the Z-operand call of its shape where it draws Z
+   in the kernel (n ≤ 64), one more (row 5's) on wider rows.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits non-zero
@@ -205,7 +251,9 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 LAM_START, KMAX = 12, 8                   # λ_max = 12·2⁸ = 3072
 GENS = 64                                 # phase 3's generations
-BUDGET = 50_000                           # phase 4's evaluations
+#: phases 4 and 4b's evaluations: cut from 50 000 in PR 19 to keep the
+#: script within its time limit as the campaign phases joined it
+BUDGET = 10_000
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
@@ -221,7 +269,11 @@ BUCKETS = [(dict(MAIN, lam=LAM_START), None)] + [
 #: phase 3b; the widest bucket phase 4b reached), filled in by main().
 PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1),
          "bucketed_rng_f8": (dict(MAIN, lam=LAM_START), None),
-         "bucketed_rng_f1_restarts": (None, 1)}
+         "bucketed_rng_f1_restarts": (None, 1),
+         "hostloop_f1": (RESTARTS, 1),
+         "campaign_bbob24_n40": (None, None),
+         "campaign_sep_rng_n40": (None, None),
+         "campaign_bbob24_n1000": (dict(MAIN, S=24), None)}
 _SAMPLE_CU = "src/repro_torch/kernels/csrc/cma_gen_sample.cu"
 SOURCES = {
     "cma_gen_sample": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:91"),
@@ -298,12 +350,39 @@ LANES_PER_SM, SMS = 64, 132
 RNG_FP64_OPS = {}
 #: phases 4b and 4c: the evaluations their runs spend (the RNG kernels keep
 #: the stream's bits wherever Z is drawn, so the runs keep their
-#: trajectories)
-FEVALS_4B = 49_908
+#: trajectories).  4b at 10 000: on the card at 50 000 its first descent
+#: ran 627 generations of λ = 12 and its second 452 of λ = 24, so at
+#: 10 000 the second is cut by the budget after 103 (49 908 at 50 000
+#: before PR 19)
+FEVALS_4B = 9_996
 FEVALS_4C = 9_996
 #: Z elements a thread of row 5's float64 kernel draws in its wide form
 #: (16 bytes of columns of one row, ``cma_gen_sample.cu``)
 RNG_ELEMENTS_PER_THREAD = 2
+#: the campaigns (phases 9-9d): at n = 40, every fid × instances (1, 2)
+#: with 10 000 evaluations a member (9), and the (1, 2) menu × instances
+#: 1-4 × 2 runs (9b, and phase 2's per-member coefficients); card against
+#: CPU at n = 8 (9c); the λ_max-padded ladder over the 24 fids at n = 1000
+#: for 16 generations, peak allocated memory under 20 GB (9d)
+CAMPAIGN = dict(n=40, instances=(1, 2), budget=10_000)
+CAMPAIGN_SEP = dict(fids=(1, 2), instances=(1, 2, 3, 4), runs=2)
+CAMPAIGN_SEP_SLOTS = 16
+CAMPAIGN_SMALL = dict(fids=(1, 2, 8), instances=(1, 2), n=8, lam_start=16,
+                      kmax_exp=2, max_evals=1500)
+CAMPAIGN_WIDE = dict(members=24, gens=16, peak_gb=20.0)
+#: phase 2's member counts at the campaign widths (12·2ᵏ, 40)
+CAMPAIGN_SLOTS = (CAMPAIGN_SEP_SLOTS, 48)
+#: the ECDF's 51 targets, 10^2 … 10^-8
+ECDF_TARGETS = 10.0 ** np.linspace(2, -8, 51)
+#: phase 9c's evaluators, card against CPU: relative tolerance per fid
+#: (1e-12 elsewhere), as tests/test_torch_bbob.py holds the port to JAX,
+#: and f23 at 1e-11: its 32 scales 2ʲ·z and 40 factors (1 + i·Σ)^0.119
+#: carry a last-ulp difference of z (cuBLAS's and the CPU's X·Rᵀ sum in
+#: other orders) to 2.6e-12 and 3.5e-12 (two runs on an H100 80GB HBM3
+#: at 700 W) on rows far from any rounding boundary
+EVAL_RTOL = {16: 1e-9, 19: 1e-9, 17: 1e-11, 18: 1e-11, 23: 1e-11}
+#: phase 4d: the host-loop backend on f1
+HOSTLOOP = dict(n=40, budget=10_000)
 
 
 def emit(obj) -> None:
@@ -344,12 +423,13 @@ def sample_inputs(S, lam, n, dtype, dev, seed=0, fid=None):
                     ).expand(S, n),
             shift=t(rng.uniform(-4.0, 4.0, size=(S, n))),
             f_opt=t(np.round(rng.uniform(-100, 100, size=S), 2)),
-            mode=torch.tensor([1, 0, 1][:S] if S > 1 else [1],
+            mode=torch.tensor([1 - s % 2 for s in range(S)],
                               dtype=torch.int32, device=dev),
-            valid=torch.tensor([True, True, False][:S] if S > 1 else [True],
-                               device=dev))
+            valid=torch.tensor([s != 2 for s in range(S)], device=dev))
+    # an instance's coefficients repeat over the S slots; the random ones
+    # are S members of one slot each
     return ({k: v.to(dtype).contiguous() for k, v in args.items()},
-            ops.slot_sep(sep, S, dtype))
+            ops.slot_sep(sep, S if fid is not None else 1, dtype))
 
 
 def kernel_eval(a, sep):
@@ -784,6 +864,8 @@ def phase_kernels(dev):
                              "dtype": str(dtype), "max_abs_err": e[0],
                              "max_rel_err": e[1],
                              "repeat_bit_identical": True})
+    campaign_rows, wide_plan = campaign_kernel_checks(dev, errs)
+    rows += campaign_rows
     rows += strategy_kernel_checks(dev, errs)
     rows += lm_kernel_checks(dev, errs)
     bf16_worst = {name: max(r["max_elem_ratio"] for r in rows
@@ -791,6 +873,7 @@ def phase_kernels(dev):
                             and r["dtype"] == str(torch.bfloat16))
                   for name in ("flash_attention", "wkv6_forward")}
     emit({"phase": "kernels_vs_plain", "checks": rows,
+          "update_plan_campaign_n1000": wide_plan,
           "bf16_worst_share_of_limit": bf16_worst,
           "rng_prefix_stable": rng_prefix_checks(dev)})
     return errs
@@ -1162,7 +1245,8 @@ def phase_small_bucketed(dev):
     covariances have a repeated eigenvalue, whose eigenvectors cuSOLVER and
     LAPACK choose differently, and the two runs then sample different
     populations from the same distribution."""
-    kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=6000)
+    # 3 000 evaluations: cut from 6 000 in PR 19 for the script's time
+    kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=3000)
     worst = {}
     for fid in (8, 1, 2):
         for impl in ("auto", "kernel_rng"):
@@ -1337,6 +1421,471 @@ def phase_float32(dev):
     emit({"phase": "float32_f1", **F32, "f_err_bound": bound, "runs": runs,
           "launches": launches})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# campaigns: phase 2's campaign shapes and phases 4d, 9, 9b, 9c, 9d
+# ---------------------------------------------------------------------------
+
+def campaign_sep(n, dtype, dev):
+    """Real per-member coefficients of the (1, 2) menu at width n: f1 and
+    f2 × instances 1–4 × 2 runs (``CAMPAIGN_SEP``), 16 members, member 5
+    made invalid, one slot a member."""
+    members = ladder.campaign_members(**CAMPAIGN_SEP)
+    inst = ladder.campaign_instances(members, n, dtype, dev)
+    sep = bbob.separable_coeffs(inst, CAMPAIGN_SEP["fids"])
+    valid = sep.valid.clone()
+    valid[5] = False
+    return ops.slot_sep(sep._replace(valid=valid), 1, dtype)
+
+
+def campaign_kernel_checks(dev, errs):
+    """Rows 1-4 and 6 at the campaign shapes (module docstring, phase 2):
+    S members at (12·2ᵏ, 40), k = 0…8, with the (1, 2) menu's per-member
+    coefficients at S = 16; rows 1 and 6 at phase 9d's (24, 3072, 1000).
+    Each against its plain version and again, bit for bit, on a second
+    launch into NaN-filled memory.  Returns the check rows and the update
+    plan at (24, 3072, 1000)."""
+    rows = []
+
+    def check(name, S, lam, n, dtype, kern, plain):
+        got = kern()
+        e = compare(f"{name} at ({S}, {lam}, {n})", got, plain(), dtype)
+        repeat_on_poison(f"{name} at ({S}, {lam}, {n})", kern, got)
+        record(name, S, lam, n, dtype, e)
+
+    def check_update(S, lam, n, dtype):
+        u = update_inputs(S, lam, n, dtype, dev)
+        got = poisoned_update(u)
+        e = compare(f"cma_gen_update at ({S}, {lam}, {n})", got,
+                    ref_update(u), dtype)
+        symmetric("cma_gen_update", got[0])
+        same_bits(f"cma_gen_update at ({S}, {lam}, {n}) (second launch)",
+                  got, poisoned_update(u))
+        record("cma_gen_update", S, lam, n, dtype, e)
+
+    def record(name, S, lam, n, dtype, e):
+        if dtype == torch.float64:
+            errs[name] = max(errs[name], e[0])
+        rows.append({"kernel": name, "shape": [S, lam, n],
+                     "dtype": str(dtype), "max_abs_err": e[0],
+                     "max_rel_err": e[1], "repeat_bit_identical": True})
+
+    n = CAMPAIGN["n"]
+    for S in CAMPAIGN_SLOTS:
+        for k in range(KMAX + 1):
+            lam = LAM_START << k
+            for dtype in (torch.float64, torch.float32):
+                a, _ = sample_inputs(S, lam, n, dtype, dev, seed=S + k)
+                r, seeds = rng_args(a), seed_words(S, dev, seed=lam + S)
+                check("cma_gen_sample", S, lam, n, dtype,
+                      lambda: cma_gen.gen_sample(**a),
+                      lambda: ref.gen_sample(**a))
+                check("cma_gen_sample_rng", S, lam, n, dtype,
+                      lambda: cma_gen.gen_sample_rng(**r, seeds=seeds,
+                                                     lam=lam),
+                      lambda: ref.gen_sample_rng(**r, seeds=seeds, lam=lam))
+                if S == CAMPAIGN_SEP_SLOTS:
+                    sep = campaign_sep(n, dtype, dev)
+                    check("cma_gen_sample_eval", S, lam, n, dtype,
+                          lambda: kernel_eval(a, sep),
+                          lambda: ref.gen_sample_eval(**a, sep=sep))
+                    check("cma_gen_sample_rng_eval", S, lam, n, dtype,
+                          lambda: cma_gen.gen_sample_rng_eval(
+                              *r.values(), seeds, lam, *sep),
+                          lambda: ref.gen_sample_rng_eval(
+                              *r.values(), seeds, lam, sep))
+                check_update(S, lam, n, dtype)
+    S, lam, n = CAMPAIGN_WIDE["members"], MAIN["lam"], MAIN["n"]
+    for dtype in (torch.float64, torch.float32):
+        a, _ = sample_inputs(S, lam, n, dtype, dev, seed=S)
+        check("cma_gen_sample", S, lam, n, dtype,
+              lambda: cma_gen.gen_sample(**a), lambda: ref.gen_sample(**a))
+        del a
+        check_update(S, lam, n, dtype)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    plan = cma_gen.update_plan(S, lam, n)
+    return rows, {"shape": [S, lam, n], "chunks": plan.chunks,
+                  "chunk_rows": plan.chunk_rows,
+                  "scratch_bytes_f64": 8 * sum(plan.scratch().values())}
+
+
+def last_rungs(trace, kmax):
+    """Per member of a campaign trace: the rung it ends on (one above the
+    rung of its last generation if that generation stopped it) and whether
+    it retired on the last rung."""
+    ran, k = trace.ran[..., 0], trace.k_idx[..., 0]
+    stop = trace.stopped[..., 0]
+    out = []
+    for b in range(ran.shape[0]):
+        idx = np.flatnonzero(ran[b])
+        if not idx.size:
+            out.append((0, False))
+            continue
+        last_k, stopped = int(k[b, idx[-1]]), bool(stop[b, idx[-1]])
+        retired = stopped and last_k == kmax
+        out.append((last_k + (stopped and not retired), retired))
+    return out
+
+
+def check_campaign_budget(name, res, budget, lam_start, kmax):
+    """Each member spent at most ``budget``, and more than ``budget`` less
+    the λ of the rung it ends on unless it retired on the last rung."""
+    for b, (k_end, retired) in enumerate(last_rungs(res.trace, kmax)):
+        fe = int(res.total_fevals[b])
+        short = fe <= budget - (lam_start << k_end)
+        if fe > budget or (short and not retired):
+            raise AssertionError(f"{name}: member {res.members[b]} spent {fe}"
+                                 f" of {budget} ending on rung {k_end}")
+
+
+def check_campaign_launches(name, launches, steps, sample_kernel):
+    """One sample launch and one update launch a step, whatever the member
+    count, and no other kernel."""
+    mine = (sample_kernel, "cma_gen_update")
+    others = {k: v for k, v in launches.items() if k not in mine}
+    if any(launches[k] != steps for k in mine) or any(others.values()):
+        raise AssertionError(f"{name}: launches {launches} for {steps} "
+                             "steps")
+
+
+def ecdf(res):
+    """Per ``bbob.GROUPS`` entry, the share of (member, target) pairs
+    reached over ``ECDF_TARGETS`` at the end of the run."""
+    hits = np.isfinite(res.hit_evals(ECDF_TARGETS))
+    fids = np.array([f for f, _i, _r in res.members])
+    return {g: float(hits[np.isin(fids, fs)].mean())
+            for g, fs in bbob.GROUPS.items() if np.isin(fids, fs).any()}
+
+
+def run_bucketed_campaign(dev, name, fids, instances, runs, impl, policy,
+                          sample_kernel):
+    """``run_campaign_bucketed`` at n = 40 with ``CAMPAIGN``'s budget a
+    member, checked (module docstring, phase 9) and summarised; returns
+    the summary, its launches and the widest bucket it ran."""
+    n, budget = CAMPAIGN["n"], CAMPAIGN["budget"]
+    eng = bucketed.BucketedLadderEngine(
+        n=n, lam_start=LAM_START, kmax_exp=KMAX, max_evals=budget, impl=impl,
+        policy=policy, device=dev)
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    res = bucketed.run_campaign_bucketed(eng, fids, instances, runs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cma_gen.LAUNCHES)
+    steps = sum(sg["gens"] for sg in res.segments)
+    where = f"{name} {policy}"
+    check_campaign_launches(where, launches, steps, sample_kernel)
+    check_campaign_budget(where, res, budget, LAM_START, KMAX)
+    if res.compiles > KMAX + 1:
+        raise AssertionError(f"{where}: {res.compiles} programs")
+    err = res.best_f - res.f_opt
+    f1 = np.array([f == 1 for f, _i, _r in res.members])
+    if not (err[f1] <= 1e-8).all():
+        raise AssertionError(f"{where}: f1 members at {err[f1]}")
+    f2 = np.array([f == 2 for f, _i, _r in res.members])
+    return {"members": len(res.members), "policy": policy, "wall_s": wall,
+            "steps": steps, "ms_per_step": wall / steps * 1e3,
+            "segments": len(res.segments), "pulls": res.pulls,
+            "compiles": res.compiles, "padding_waste": res.padding_waste(),
+            "useful_evals": res.useful_evals,
+            "padded_evals": res.padded_evals,
+            "fevals": [int(x) for x in res.total_fevals],
+            "f1_best_minus_fopt_max": float(err[f1].max()),
+            "f2_best_minus_fopt": [float(x) for x in err[f2]],
+            "ecdf": ecdf(res), "launches": launches}, launches, max(
+                LAM_START << sg["bucket"] for sg in res.segments)
+
+
+def phase_campaign_n40(dev):
+    """Phase 9: all 24 fids × instances (1, 2) through the bucketed driver,
+    under both policies.  Returns the launches and the widest bucket."""
+    out, launches, widest = {}, {k: 0 for k in cma_gen.LAUNCHES}, 0
+    for policy in ("cover", "min"):
+        out[policy], ln, wd = run_bucketed_campaign(
+            dev, "campaign_bbob24_n40", range(1, 25), CAMPAIGN["instances"],
+            1, "auto", policy, "cma_gen_sample")
+        widest = max(widest, wd)
+        for k, v in ln.items():
+            launches[k] += v
+    emit({"phase": "campaign_bbob24_n40", "n": CAMPAIGN["n"],
+          "budget_per_member": CAMPAIGN["budget"], "runs": out})
+    return launches, widest
+
+
+def phase_campaign_sep_rng(dev):
+    """Phase 9b: the (1, 2) menu under ``kernel_rng`` (row 4, the draw in
+    the kernel at n = 40, with mixed per-member coefficients)."""
+    summary, launches, widest = run_bucketed_campaign(
+        dev, "campaign_sep_rng_n40", CAMPAIGN_SEP["fids"],
+        CAMPAIGN_SEP["instances"], CAMPAIGN_SEP["runs"], "kernel_rng",
+        "cover", "cma_gen_sample_rng_eval")
+    emit({"phase": "campaign_sep_rng_n40", "n": CAMPAIGN["n"],
+          "budget_per_member": CAMPAIGN["budget"], **summary})
+    return launches, widest
+
+
+def near_rounding(fid, inst, X):
+    """Rows of X where f7's z (floor of zhat + 1/2 and of 10·zhat + 1/2,
+    the |zhat| = 1/2 switch) or f23's (round of z·2ʲ) lies within 1e-12 of
+    a boundary (tests/test_torch_bbob.py's rule)."""
+    n = X.shape[-1]
+    z = bbob._rot(X - inst.x_opt, inst.R)
+    if fid == 7:
+        zh = z * bbob.lam_alpha(10.0, n, X)
+        d = torch.minimum(torch.minimum(
+            (zh + 0.5 - torch.round(zh + 0.5)).abs(),
+            (10 * zh + 0.5 - torch.round(10 * zh + 0.5)).abs() / 10),
+            (zh.abs() - 0.5).abs())
+    else:
+        z = bbob._rot(z * bbob.lam_alpha(100.0, n, X), inst.Q)
+        j = 2.0 ** torch.arange(1, 33, dtype=X.dtype)
+        zj = z[..., None] * j
+        d = (zj - torch.floor(zj) - 0.5).abs() / j
+    return (d.reshape(d.shape[0], -1) < 1e-12).any(-1)
+
+
+def evaluator_card_vs_cpu(dev):
+    """Each of the 24 evaluators at n = 40, one call on 64 rows (the
+    optimum among them), the card against the CPU on the same instance:
+    per fid the largest relative error and, for f7 and f23, the rows
+    excused as rounding-boundary cases."""
+    n, out = CAMPAIGN["n"], {}
+    rng = np.random.default_rng(9)
+    for fid in range(1, 25):
+        inst = bbob.make_instance(fid, n, 1, device="cpu")
+        X = torch.tensor(rng.uniform(-5, 5, (64, n)))
+        X[0] = inst.x_opt
+        want = bbob.evaluate(fid, inst, X)
+        got = bbob.evaluate(fid, bbob.BBOBInstance(*(x.to(dev) for x in inst)),
+                            X.to(dev)).cpu()
+        rel = (got - want).abs() / want.abs()
+        bad = ~(rel <= EVAL_RTOL.get(fid, 1e-12))
+        excused = 0
+        if fid in (7, 23):
+            near = near_rounding(fid, inst, X)
+            excused = int((bad & near).sum())
+            bad &= ~near
+        if bad.any():
+            raise AssertionError(f"f{fid} card vs CPU: rows "
+                                 f"{torch.nonzero(bad).flatten().tolist()}"
+                                 f" off by {float(rel[bad].max()):.3e}")
+        out[fid] = {"max_rel_err": float(rel[~rel.isnan()].max()),
+                    **({"boundary_rows": excused} if fid in (7, 23) else {})}
+    return out
+
+
+def phase_campaign_card_vs_cpu(dev):
+    """Phase 9c: ``run_campaign`` and ``run_campaign_bucketed`` at n = 8
+    on the card and the CPU (``CAMPAIGN_SMALL``), ``auto`` and
+    ``kernel_rng``: every int leaf of the traces and the evaluations
+    exactly, the best values element by element to 1e-9 (``f_err``); then
+    the 24 evaluators card against CPU.  Returns the card runs' launches."""
+    c = dict(CAMPAIGN_SMALL)
+    fids, instances = c.pop("fids"), c.pop("instances")
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    runs = {}
+    for engine in ("ladder", "bucketed"):
+        for impl in ("auto", "kernel_rng"):
+            res = {}
+            for d in (dev, "cpu"):
+                cma_gen.reset_launches()
+                if engine == "ladder":
+                    res[d] = ladder.run_campaign(ladder.LadderEngine(
+                        **c, impl=impl, device=d), fids, instances)
+                else:
+                    res[d] = bucketed.run_campaign_bucketed(
+                        bucketed.BucketedLadderEngine(**c, impl=impl,
+                                                      device=d),
+                        fids, instances)
+                if d == dev:
+                    torch.cuda.synchronize()
+                    for k, v in cma_gen.LAUNCHES.items():
+                        launches[k] += v
+            card, cpu = res[dev], res["cpu"]
+            name = f"{engine}_{impl}"
+            for f in ("ran", "k_idx", "gen", "fevals", "stop_reason",
+                      "stopped", "total_fevals"):
+                if not np.array_equal(getattr(card.trace, f),
+                                      getattr(cpu.trace, f)):
+                    raise AssertionError(f"9c {name}: trace {f} differs "
+                                         "between card and CPU")
+            if not np.array_equal(card.total_fevals, cpu.total_fevals):
+                raise AssertionError(f"9c {name}: evaluations differ")
+            worst = 0.0
+            for b in range(len(card.members)):
+                for x, y in ((card.best_f[b], cpu.best_f[b]),
+                             (card.trace.best_f[b], cpu.trace.best_f[b]),
+                             (card.trace.global_best[b],
+                              cpu.trace.global_best[b])):
+                    worst = max(worst, f_err(x, y, cpu.f_opt[b])[0])
+            if not worst <= 1e-9:
+                raise AssertionError(f"9c {name}: best values off by "
+                                     f"{worst:.3e}")
+            runs[name] = {"members": len(card.members), "best_f_err": worst,
+                          "fevals": [int(x) for x in card.total_fevals],
+                          "gens": int(card.trace.ran.shape[1])}
+    emit({"phase": "campaign_card_vs_cpu", **CAMPAIGN_SMALL, "runs": runs,
+          "evaluators_n40": evaluator_card_vs_cpu(dev)})
+    return launches
+
+
+def phase_campaign_wide(dev):
+    """Phase 9d: ``run_campaign`` (the λ_max-padded ladder) over the 24
+    fids × instance 1 at n = 1000 for ``CAMPAIGN_WIDE["gens"]``
+    generations: rows 1 and 6 at (24, 3072, 1000), one launch each a
+    generation; evaluations from the trace; ms a generation, the batched
+    ``eigh`` of the 24 covariances, peak allocated memory."""
+    n, gens, S = MAIN["n"], CAMPAIGN_WIDE["gens"], CAMPAIGN_WIDE["members"]
+    eng = ladder.LadderEngine(n=n, lam_start=LAM_START, kmax_exp=KMAX,
+                              max_evals=10 ** 9, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    res = ladder.run_campaign(eng, range(1, S + 1), (1,), total_gens=gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = dict(cma_gen.LAUNCHES)
+    check_campaign_launches("campaign_bbob24_n1000", launches, gens,
+                            "cma_gen_sample")
+    tr = res.trace
+    spent = (tr.ran[..., 0] * (LAM_START << tr.k_idx[..., 0])).sum(1)
+    if not np.array_equal(spent, res.total_fevals):
+        raise AssertionError(f"9d: evaluations {res.total_fevals}, the "
+                             f"trace's {spent}")
+    if not np.isfinite(res.best_f).all():
+        raise AssertionError(f"9d: best values {res.best_f}")
+    if not peak_gb < CAMPAIGN_WIDE["peak_gb"]:
+        raise AssertionError(f"9d: peak memory {peak_gb:.2f} GB")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ladder.campaign_instances(ladder.campaign_members(range(1, S + 1)), n,
+                              torch.float64, dev)
+    torch.cuda.synchronize()
+    inst_s = time.perf_counter() - t0
+    C = update_inputs(S, LAM_START, n, torch.float64, dev)["C"]
+    eigh_ms = time_ms(lambda: cmaes.eigen_decompose(C), reps=3)
+    del C
+    torch.cuda.empty_cache()
+    emit({"phase": "campaign_bbob24_n1000", "members": S, "n": n,
+          "lam_max": MAIN["lam"], "gens": gens, "wall_s": wall,
+          "instances_s": inst_s, "ms_per_gen": (wall - inst_s) / gens * 1e3,
+          "eigh_ms": eigh_ms, "peak_allocated_gb": peak_gb,
+          "launches": launches, "fevals": [int(x) for x in res.total_fevals],
+          "best_minus_fopt": {f: float(e) for (f, _i, _r), e in zip(
+              res.members, res.best_f - res.f_opt)}})
+    return launches
+
+
+def phase_hostloop(dev):
+    """Phase 4d: ``run_ipop(backend="hostloop")`` on f1 through the
+    eval-fused kernel at n = 40: a host read per chunk; the budget spent
+    up to less than the λ of the rung that could not start; f_opt + 1e-8
+    reached."""
+    n, budget = HOSTLOOP["n"], HOSTLOOP["budget"]
+    fn, inst = bbob.make_fitness(1, n, 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    torch.cuda.synchronize()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    res = ipop.run_ipop(fit, n, 5, lam_start=LAM_START, kmax_exp=KMAX,
+                        max_evals=budget, backend="hostloop", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cma_gen.LAUNCHES)
+    err = res.best_f - float(inst.f_opt)
+    last = res.descents[-1]
+    unspent = budget - res.total_fevals
+    gens = sum(len(d.gens) for d in res.descents)
+    steps = launches["cma_gen_sample_eval"]
+    others = {k: v for k, v in launches.items()
+              if k not in ("cma_gen_sample_eval", "cma_gen_update")}
+    if not err <= 1e-8:
+        raise AssertionError(f"hostloop f1: best_f - f_opt = {err}")
+    if unspent < 0 or (last.k_exp < KMAX and unspent >= 2 * last.lam):
+        raise AssertionError(f"hostloop f1: {res.total_fevals} of {budget} "
+                             f"spent, last λ {last.lam}")
+    if (steps != launches["cma_gen_update"] or steps < gens
+            or any(others.values())):
+        raise AssertionError(f"hostloop f1: launches {launches} for {gens} "
+                             "generations")
+    emit({"phase": "hostloop_f1", "n": n, "budget": budget,
+          "best_f_minus_fopt": err, "total_fevals": res.total_fevals,
+          "descents": [[d.lam, len(d.gens), d.stop_reason]
+                       for d in res.descents],
+          "gens": gens, "steps": steps, "wall_s": wall,
+          "ms_per_step": wall / steps * 1e3, "launches": launches})
+    return launches
+
+
+def unqualified(fn):
+    """The last name of a mangled function's (nested) name: ``tile_kernel``
+    of ``_Z11tile_kernelIdEv…`` and ``epilogue_kernel`` of
+    ``_ZN12_GLOBAL__N_115epilogue_kernelIdEEv…``; an unmangled name as
+    is."""
+    m = re.match(r"_ZN?", fn)
+    if not m:
+        return fn
+    i, name = m.end(), fn
+    while i < len(fn) and fn[i].isdigit():
+        j = i
+        while fn[j].isdigit():
+            j += 1
+        name, i = fn[j:j + int(fn[i:j])], j + int(fn[i:j])
+    return name
+
+
+def kernel_symbols():
+    """The kernels of ``kernels/csrc``: each built library's functions
+    (``cuobjdump``) as mangled, and their unqualified names."""
+    mangled = {fn for lib in _build.build_all().values()
+               for fn in sass_functions(lib)}
+    return mangled, {unqualified(fn) for fn in mangled}
+
+
+def phase_no_fallback(dev):
+    """A small ladder (f1, n = 8, eval-fused) under each tier on the card,
+    under ``torch.profiler``: the plain tiers (``eager``,
+    ``eager_unfused``) launch no kernel of ``kernels/csrc`` (no count, no
+    profiled kernel of those names), ``auto`` does (both)."""
+    from torch.profiler import ProfilerActivity, profile
+    mangled, names = kernel_symbols()
+    pattern = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
+        sorted(map(re.escape, names), key=len, reverse=True))
+        + r")(?![A-Za-z0-9_])")
+
+    def ours(key):
+        """A profiled kernel's name, demangled or not, is one of ours."""
+        return any(m in key for m in mangled) or pattern.search(key)
+    fn, inst = bbob.make_fitness(1, 8, 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    out = {}
+    for impl in ("eager", "eager_unfused", "auto"):
+        eng = ladder.LadderEngine(n=8, lam_start=8, kmax_exp=1,
+                                  max_evals=10 ** 6, impl=impl, device=dev)
+        torch.cuda.synchronize()
+        cma_gen.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.run(3, fit, 8)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if profile_update.device_us(e) > 0]
+        found = {e.key[:80]: e.count for e in kernels if ours(e.key)}
+        counted = sum(cma_gen.LAUNCHES.values())
+        out[impl] = {"profiled": found, "counted": counted,
+                     "device_kernels": len(kernels)}
+        kernel_tier = impl == "auto"
+        if kernel_tier != bool(found) or kernel_tier != bool(counted):
+            raise AssertionError(
+                f"no-fallback check, impl={impl}: profiled {found}, counted "
+                f"{counted}, device kernels "
+                f"{sorted(e.key[:60] for e in kernels)[:20]}")
+    emit({"phase": "no_fallback", "kernel_names": sorted(names), "runs": out})
 
 
 def phase_strategies(dev):
@@ -1998,7 +2547,7 @@ def kernel_work(shape, fid, dev):
     S, lam, n = shape["S"], shape["lam"], shape["n"]
     a, sep = sample_inputs(S, lam, n, torch.float64, dev, fid=fid)
     u = update_inputs(S, lam, n, torch.float64, dev, zero_slot=False)
-    lam_nz = int((u["w"] != 0).sum())
+    lam_nz = int((u["w"] != 0).sum())          # weighted rows, all slots
     esz = 8
     zd = (a["Z"] * a["D"][:, None, :]).contiguous()
     bt = a["B"].transpose(-1, -2)
@@ -2021,8 +2570,8 @@ def kernel_work(shape, fid, dev):
         "cma_gen_update": (
             lambda: cma_gen.gen_update(**u), lambda: ref_update(u),
             lambda: torch.matmul(yst, ys),
-            S * (n * (n + 1) * lam_nz + 2.0 * lam_nz * n + 4.0 * n * n),
-            esz * (S * (3 * n * n + lam_nz * n + lam + 8 * n + 7)), 0),
+            n * (n + 1) * lam_nz + 2.0 * lam_nz * n + S * 4.0 * n * n,
+            esz * (S * (3 * n * n + lam + 8 * n + 7) + lam_nz * n), 0),
         "cma_gen_sample_rng": (
             lambda: cma_gen.gen_sample_rng(*r, seeds, lam),
             lambda: ref.gen_sample_rng(*r, seeds, lam),
@@ -2134,6 +2683,20 @@ def main() -> int:
         "4b_bucketed_restarts", phase_bucketed_restarts, dev)
     PATHS["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
     launches["float32_f1"] = timed("4c_float32", phase_float32, dev)
+    launches["hostloop_f1"] = timed("4d_hostloop", phase_hostloop, dev)
+    launches["campaign_bbob24_n40"], widest = timed(
+        "9_campaign_n40", phase_campaign_n40, dev)
+    PATHS["campaign_bbob24_n40"] = (dict(RESTARTS, S=24 * 2, lam=widest),
+                                    None)
+    launches["campaign_sep_rng_n40"], widest = timed(
+        "9b_campaign_sep_rng", phase_campaign_sep_rng, dev)
+    PATHS["campaign_sep_rng_n40"] = (
+        dict(RESTARTS, S=CAMPAIGN_SEP_SLOTS, lam=widest), None)
+    launches["campaign_card_vs_cpu"] = timed(
+        "9c_campaign_card_vs_cpu", phase_campaign_card_vs_cpu, dev)
+    launches["campaign_bbob24_n1000"] = timed(
+        "9d_campaign_n1000", phase_campaign_wide, dev)
+    timed("9e_no_fallback", phase_no_fallback, dev)
     launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
                                             dev)
     launches["strategies_small_card_vs_cpu"] = timed(

@@ -47,7 +47,15 @@ def cma_params(params, device) -> CMAParams:
 
 
 def bbob_instance(inst, device) -> BBOBInstance:
+    """One instance, its Gallagher peak leaves included."""
     return _named(BBOBInstance, inst, device)
+
+
+def bbob_instances(insts, device) -> BBOBInstance:
+    """A list of the JAX package's instances, stacked as
+    ``bbob.stack_instances`` stacks the port's (peaks padded)."""
+    from repro_torch.fitness.bbob import stack_instances
+    return stack_instances([bbob_instance(i, device) for i in insts])
 
 
 def ladder_carry(carry, device) -> LadderCarry:

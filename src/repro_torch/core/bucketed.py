@@ -1,5 +1,5 @@
 """Rung-bucketed execution of the IPOP ladder: work proportional to the
-live rung.  Port of the single-problem part of ``repro/core/bucketed.py``.
+live rung.  Port of ``repro/core/bucketed.py``.
 
 The λ_max-padded ladder (``core/ladder.py``) samples, evaluates and reduces
 λ_max rows every generation even when the live rung needs only λ_start:
@@ -8,11 +8,13 @@ The λ_max-padded ladder (``core/ladder.py``) samples, evaluates and reduces
 parameter stack at that width.  A bucket runs a *segment* of whole eigen
 blocks (``BucketedLadderEngine.segment_scan``).  Between segments the host
 driver (``drive_segments``) reads the schedule back once
-(``pull_schedule``: rung index, active flag, budget spent and best value,
-in one transfer) and picks the next bucket (``next_bucket``).  A slot whose
-restart outgrows its bucket is parked for the rest of the segment
-(``slots_gen_step(bucket_cap=k)``), and the driver stops as soon as no
-slot can pay for another generation.
+(``pull_schedule``: rung index, active flag, budget spent and best value
+of every member, in one transfer) and picks the next bucket
+(``next_bucket``, by ``policy``: ``"cover"`` the widest live rung, ``"min"``
+the narrowest).  A slot whose rung lies above the bucket is parked for the
+segment (``slots_gen_step(bucket_cap=k)``), and the driver stops as soon as
+no member can pay for another generation.  ``run_campaign_bucketed`` drives
+a campaign's B members (carry leaves (B, S, ...)) through the same loop.
 
 Both sampling tiers are prefix-stable: a member draws the same numbers in
 whichever bucket runs it (the row-keyed draw keys each row, the counter
@@ -20,11 +22,9 @@ stream each element).  With ``eigen_interval == 1`` the bucketed run is
 the padded ladder's trajectory, up to the order of floating-point sums.
 
 Waiting (ROADMAP.md): the ``bucketed_*`` observability series and the
-fleet supervisor hooks (queue A item 12); ``run_campaign_bucketed`` and
-``BucketedCampaignResult``, which wait for campaigns
-(``ladder.run_campaign``, ``bbob.stack_instances``, ``evaluate_dynamic``);
-one CUDA graph per bucket segment, which ``torch.linalg.eigh``'s host sync
-inside a segment rules out for now.
+fleet supervisor hooks (queue A item 12); one CUDA graph per bucket
+segment, which ``torch.linalg.eigh``'s host sync inside a segment rules
+out for now.
 """
 from __future__ import annotations
 
@@ -36,12 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import ladder
-from repro_torch.core.params import bucket_config, ladder_params
+from repro_torch.core.params import (bucket_config, default_max_iter,
+                                     ladder_params)
+from repro_torch.fitness import bbob
 from repro_torch.kernels import ops
 
-#: segment length cap in eigen blocks: the driver runs the widest live
-#: rung, so segments stay short enough to follow a climbing member
-SEG_BLOCKS = 64
 #: a guard: the driver raises after this many segments
 MAX_SEGMENTS = 10_000
 
@@ -61,10 +60,18 @@ class BucketedLadderEngine:
     impl: str = "auto"                  # sampling tier, see kernels/ops.py
     dtype: str = "float64"
     eigen_interval: Optional[int] = None
+    seg_blocks: Optional[int] = None    # segment length cap in eigen blocks
+    policy: str = "cover"               # "cover" | "min" (``next_bucket``)
     overlap: bool = False               # speculative next-segment dispatch
     device: Optional[str] = None        # None: CUDA, raising without it
 
     def __post_init__(self):
+        if self.policy not in ("cover", "min"):
+            raise ValueError(f"unknown policy {self.policy!r}")
+        if self.seg_blocks is None and self.policy == "cover":
+            # cover runs the widest live rung, so segments stay short
+            # enough to follow a climbing member
+            self.seg_blocks = 64
         # the padded engine supplies cfg, sparams, keys and the initial
         # carry; the buckets only narrow the padding
         self.full = ladder.LadderEngine(
@@ -83,20 +90,26 @@ class BucketedLadderEngine:
             self.bucket_cfgs.append(cfg_k)
             self.bucket_sparams.append(
                 ladder_params(cfg_k, self.lam_start, k, device=self.device))
+        self._programs: set = set()
 
     def bucket_seg_gens(self, k: int, need_gens: Optional[int] = None) -> int:
         """Segment length (generations) of bucket k: whole eigen blocks,
         capped by what a rung-k descent can still run (the budget's
-        generations at λ_k, and the cohort's remaining need when known),
-        the block count rounded up to a power of two and capped at
-        ``SEG_BLOCKS``."""
+        generations at λ_k; under ``"min"``, whose cohort sits on rung k,
+        rung k's MaxIter; the cohort's remaining need when known), the
+        block count rounded up to a power of two and capped at
+        ``seg_blocks``."""
         lam_k = (2 ** k) * self.lam_start
         most = max(1, self.max_evals // lam_k)
+        if self.policy == "min":
+            most = min(most, default_max_iter(self.n, lam_k))
         if need_gens is not None:
             most = min(most, max(1, int(need_gens)))
         blocks = -(-most // self.interval)
         blocks = 1 << (blocks - 1).bit_length()          # next power of two
-        return min(blocks, SEG_BLOCKS) * self.interval
+        if self.seg_blocks is not None:
+            blocks = min(blocks, max(1, int(self.seg_blocks)))
+        return blocks * self.interval
 
     def init_carry(self, base_key: torch.Tensor) -> ladder.LadderCarry:
         return self.full.init_carry(base_key)
@@ -119,6 +132,42 @@ class BucketedLadderEngine:
 
         return ladder.scan_eigen_blocks(step_fn, carry, self.interval,
                                         int(seg_gens) // self.interval)
+
+    def segment_runner(self, k: int, branch_fids: Tuple[int, ...],
+                       seg_gens: int) -> Callable:
+        """A campaign's segment program of bucket ``k``, length
+        ``seg_gens`` and fid menu: ``run(keys (B, 2), fitness, carry) ->
+        (carry, trace)``, the trace member-major (B, seg_gens, ...).  The
+        port compiles nothing; the engine records each distinct (bucket,
+        length, menu) it hands out, which ``compiles`` counts."""
+        self._programs.add((int(k), int(seg_gens), tuple(branch_fids)))
+
+        def run(keys, fitness_fn, carry):
+            carry, trace = self.segment_scan(k, keys, fitness_fn, carry,
+                                             seg_gens)
+            return carry, ladder.member_major(trace)
+        return run
+
+    def compiles(self) -> int:
+        """Distinct segment programs handed out (``segment_runner``)."""
+        return len(self._programs)
+
+
+@dataclasses.dataclass
+class BucketedCampaignResult(ladder.CampaignResult):
+    """A campaign result with the driver's record: ``trace`` joins the
+    segments' traces along time, each member's generations in its own
+    order, parked steps as ``ran`` False."""
+
+    segments: List[dict] = dataclasses.field(default_factory=list)
+    bucket_wall_s: Dict[int, float] = dataclasses.field(default_factory=dict)
+    useful_evals: int = 0
+    padded_evals: int = 0
+    pulls: int = 0
+
+    def padding_waste(self) -> float:
+        """Padded against useful evaluations the segments paid."""
+        return self.padded_evals / max(self.useful_evals, 1)
 
 
 def _host(x) -> np.ndarray:
@@ -183,32 +232,39 @@ def next_bucket(engine: BucketedLadderEngine, k_idx: np.ndarray,
                 active: np.ndarray, fevals: np.ndarray,
                 seg_len: Dict[int, int], budgets=None):
     """One re-bucketing decision: ``(live, k)``, with ``k`` None when no
-    member can pay for another generation.  ``k`` is the widest live rung
-    (the JAX package's ``"cover"`` policy: every live member runs every
-    step, fewest steps).  A bucket's segment length is sized when it first
-    opens and kept in ``seg_len``.  ``budgets`` (B,) replaces the engine's
-    ``max_evals`` per member; the liveness rule is the device gate of
-    ``slots_gen_step``."""
+    member can pay for another generation.  Under ``"cover"`` ``k`` is the
+    widest live rung (every live member runs every step: fewest steps),
+    under ``"min"`` the narrowest (members only move up, so the lowest
+    occupied bucket pads least).  A bucket's segment length is sized for
+    its cohort when it first opens and kept in ``seg_len``.  ``budgets``
+    (B,) replaces the engine's ``max_evals`` per member; the liveness rule
+    is the device gate of ``slots_gen_step``."""
     cap = engine.max_evals if budgets is None else np.asarray(budgets)
     lam_cur = engine.lam_start * (2 ** k_idx)
     live = active & (fevals + lam_cur <= cap)
     if not live.any():
         return live, None
-    k = int(k_idx[live].max())
+    if engine.policy == "min":
+        k = int(k_idx[live].min())
+    else:
+        k = int(k_idx[live].max())
     if k not in seg_len:
-        need = int(np.max((cap - fevals)[live] // lam_cur[live]))
+        cohort = live if engine.policy == "cover" else live & (k_idx == k)
+        need = int(np.max((cap - fevals)[cohort] // lam_cur[cohort]))
         seg_len[k] = engine.bucket_seg_gens(k, need_gens=need)
     return live, k
 
 
 def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
-                   dispatch: Callable):
+                   dispatch: Callable, time_axis: int = 0):
     """The host re-bucketing loop.  ``dispatch(k, seg_gens, carry) ->
     (carry, trace)`` runs one segment of bucket ``k``.  Between segments
     only ``pull_schedule`` reads the device; segment traces stay on the
-    device until they are concatenated at the end.  Returns ``(carry,
-    trace, log)``: ``log["segments"]`` holds one record per segment and
-    ``log["pulls"]`` counts the schedule reads (segments + 1).
+    device until they are concatenated along ``time_axis`` at the end (0
+    for one problem's (T, S) leaves, 1 for a campaign's (B, T, S)).
+    Returns ``(carry, trace, log)``: ``log["segments"]`` holds one record
+    per segment and ``log["pulls"]`` counts the schedule reads (segments +
+    1).
 
     With ``engine.overlap``, at each boundary after the first the
     schedule's copy is queued, then the next segment of the previous
@@ -272,17 +328,20 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     if not seg_traces:
         # nothing could run (a budget below one λ_start generation): the
         # padded engine's empty-progress result, with zero generations
-        return carry, _empty_trace(carry), log
-    trace = ladder.LadderTrace(*(torch.cat(leaves, dim=0)
+        return carry, _empty_trace(carry, time_axis), log
+    trace = ladder.LadderTrace(*(torch.cat(leaves, dim=time_axis)
                                  for leaves in zip(*seg_traces)))
     return carry, trace, log
 
 
-def _empty_trace(carry: ladder.LadderCarry) -> ladder.LadderTrace:
-    """A zero-generation LadderTrace with the slot layout of ``carry``."""
-    k = carry.k_idx
-    slot = (0,) + k.shape
-    dev = k.device
+def _empty_trace(carry: ladder.LadderCarry,
+                 time_axis: int) -> ladder.LadderTrace:
+    """A zero-generation LadderTrace with the slot (and member) layout of
+    ``carry``, its time axis at ``time_axis``."""
+    k = tuple(carry.k_idx.shape)
+    slot = k[:time_axis] + (0,) + k[time_axis:]
+    glob = k[:time_axis] + (0,)
+    dev = carry.k_idx.device
 
     def z(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -291,8 +350,8 @@ def _empty_trace(carry: ladder.LadderCarry) -> ladder.LadderTrace:
         gen=z(slot, torch.int32), fevals=z(slot, carry.states.fevals.dtype),
         best_f=z(slot, carry.best_f.dtype), stop_reason=z(slot, torch.int32),
         stopped=z(slot, torch.bool),
-        total_fevals=z((0,), carry.total_fevals.dtype),
-        global_best=z((0,), carry.best_f.dtype))
+        total_fevals=z(glob, carry.total_fevals.dtype),
+        global_best=z(glob, carry.best_f.dtype))
 
 
 def run_bucketed_single(engine: BucketedLadderEngine, key,
@@ -313,3 +372,48 @@ def run_bucketed_single(engine: BucketedLadderEngine, key,
         return engine.segment_scan(k, base_key, fitness_fn, c, seg_gens)
 
     return drive_segments(engine, carry, dispatch)
+
+
+def run_campaign_bucketed(engine: BucketedLadderEngine, fids,
+                          instances=(1,), runs: int = 1,
+                          seed: int = 0) -> BucketedCampaignResult:
+    """A whole BBOB campaign through the rung-bucketed segment driver: the
+    members, instances and keys of ``ladder.run_campaign``, whose
+    trajectories it follows (bit for bit in the arithmetic of a generation
+    at ``eigen_interval == 1``, up to the order of floating-point sums),
+    without λ_max padding on the low rungs, stopping as soon as every
+    member retired or spent its budget.  The fitness is built once per
+    campaign (``bbob.campaign_fitness``, its coefficients laid out per
+    slot)."""
+    members = ladder.campaign_members(tuple(fids), instances, runs)
+    full = engine.full
+    stacked = ladder.campaign_instances(members, engine.n, full.cfg.tdtype,
+                                        engine.device)
+    branch_fids = tuple(sorted(set(fids)))
+    keys = ladder.member_keys(seed, len(members), engine.device)
+    fit = ops.slot_fitness(bbob.campaign_fitness(stacked, branch_fids),
+                           full.n_slots, full.cfg.tdtype)
+
+    def dispatch(k, seg_gens, c):
+        return engine.segment_runner(k, branch_fids, seg_gens)(keys, fit, c)
+
+    carry, trace, log = drive_segments(engine, engine.init_carry(keys),
+                                       dispatch, time_axis=1)
+    trace = ladder.host_trace(trace)
+    segments = log["segments"]
+    bucket_wall: Dict[int, float] = {}
+    for sg in segments:
+        bucket_wall[sg["bucket"]] = (bucket_wall.get(sg["bucket"], 0.0)
+                                     + sg["wall_s"] + sg.get("sync_s", 0.0))
+    B = len(members)
+    useful = _useful_evals_per_rung(trace, engine.lam_start, engine.kmax_exp)
+    padded = sum(B * sg["gens"] * (2 ** sg["bucket"]) * engine.lam_start
+                 for sg in segments)
+    return BucketedCampaignResult(
+        members=members, f_opt=stacked.f_opt.cpu().numpy().astype(np.float64),
+        best_f=carry.best_f.cpu().numpy(), best_x=carry.best_x.cpu().numpy(),
+        total_fevals=carry.total_fevals.cpu().numpy(), trace=trace,
+        compiles=engine.compiles(), segments=segments,
+        bucket_wall_s={k: round(v, 5) for k, v in bucket_wall.items()},
+        useful_evals=int(sum(useful.values())), padded_evals=int(padded),
+        pulls=log["pulls"])

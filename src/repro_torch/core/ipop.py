@@ -1,10 +1,15 @@
-"""Sequential IPOP-CMA-ES (paper Alg. 2) — thin host wrapper over the
-ladder engine (port of the ``backend="ladder"`` and ``backend="bucketed"``
-parts of ``repro/core/ipop.py``).
+"""Sequential IPOP-CMA-ES (paper Alg. 2) — thin host wrappers over the
+ladder engine (port of ``repro/core/ipop.py``).
 
 ``run_ipop`` runs descents of population K·λ_start for K = 2⁰ … 2^kmax in
 order, restarting in place after each stop; the trace is moved to the host
 once, at the end, and sliced into per-descent ``DescentTrace`` records.
+``run_ipop_hostloop`` keeps the original control flow on the same key
+schedule and the same λ_max-padded step (``ladder.padded_gen_step``): one
+descent at a time in chunks of generations, with one host read of the
+chunk's stop flags and records, and a Python restart between rungs.
+``result_to_tree`` / ``result_template`` / ``result_from_tree`` split a
+result into arrays and JSON metadata for a checkpoint store and back.
 """
 from __future__ import annotations
 
@@ -12,9 +17,11 @@ import dataclasses
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import bucketed as bucketed_mod
 from repro_torch.core import ladder as ladder_mod
+from repro_torch.core.params import select_params
 from repro_torch.kernels import ops
 
 
@@ -78,6 +85,65 @@ def _result_from_ladder(engine: ladder_mod.LadderEngine,
                       descents=descents, driver=driver)
 
 
+class ShapeDtype(NamedTuple):
+    """The (shape, dtype) record of one array of ``result_template``."""
+    shape: tuple
+    dtype: np.dtype
+
+
+def result_to_tree(res: IPOPResult):
+    """``(array_tree, json_meta)`` for a checkpoint store: the arrays (the
+    best value too, which may be infinite and so stays out of JSON) as
+    leaves, the static scalars in the metadata."""
+    tree = {"best_x": np.asarray(res.best_x),
+            "best_f": np.asarray(res.best_f, np.float64),
+            "total_fevals": np.asarray(res.total_fevals, np.int64),
+            "descents": {}}
+    meta = {"x_shape": [int(s) for s in np.shape(res.best_x)],
+            "x_dtype": str(np.asarray(res.best_x).dtype), "descents": []}
+    for di, d in enumerate(res.descents):
+        tree["descents"][str(di)] = {
+            "gens": np.asarray(d.gens, np.int64),
+            "fevals": np.asarray(d.fevals, np.int64),
+            "best_f": np.asarray(d.best_f, np.float64)}
+        meta["descents"].append({"k_exp": int(d.k_exp), "lam": int(d.lam),
+                                 "stop_reason": int(d.stop_reason),
+                                 "T": int(len(d.gens))})
+    return tree, meta
+
+
+def result_template(meta: dict) -> dict:
+    """The (shape, dtype) of every array of ``result_to_tree``'s tree."""
+    tree = {"best_x": ShapeDtype(tuple(meta["x_shape"]),
+                                 np.dtype(meta["x_dtype"])),
+            "best_f": ShapeDtype((), np.dtype(np.float64)),
+            "total_fevals": ShapeDtype((), np.dtype(np.int64)),
+            "descents": {}}
+    for di, dm in enumerate(meta["descents"]):
+        T = int(dm["T"])
+        tree["descents"][str(di)] = {
+            "gens": ShapeDtype((T,), np.dtype(np.int64)),
+            "fevals": ShapeDtype((T,), np.dtype(np.int64)),
+            "best_f": ShapeDtype((T,), np.dtype(np.float64))}
+    return tree
+
+
+def result_from_tree(tree: dict, meta: dict) -> IPOPResult:
+    descents = []
+    for di, dm in enumerate(meta["descents"]):
+        dt = tree["descents"][str(di)]
+        descents.append(DescentTrace(
+            k_exp=int(dm["k_exp"]), lam=int(dm["lam"]),
+            gens=np.asarray(dt["gens"], np.int64),
+            fevals=np.asarray(dt["fevals"], np.int64),
+            best_f=np.asarray(dt["best_f"], np.float64),
+            stop_reason=int(dm["stop_reason"])))
+    return IPOPResult(best_f=float(tree["best_f"]),
+                      best_x=np.asarray(tree["best_x"]),
+                      total_fevals=int(tree["total_fevals"]),
+                      descents=descents)
+
+
 def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
              kmax_exp: int = 8, max_evals: int = 200_000, domain=(-5.0, 5.0),
              sigma0_frac: float = 0.25, chunk: int = 32, impl: str = "auto",
@@ -89,19 +155,20 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
     ``backend="ladder"`` runs the whole ladder at λ_max padding;
     ``backend="bucketed"`` drives it through the rung-bucketed segments
     (``core/bucketed.py``: work proportional to the live rung, sized by
-    the driver, so ``total_gens`` does not apply).  ``impl`` picks the
-    sampling tier on both (``kernels/ops.py``) and is validated first, for
-    every backend.  ``chunk`` only sizes the host loop of
-    ``backend="hostloop"``.  ``key`` is an int seed or a (2,) key tensor
-    (``core/prng.py``).  ``device=None`` runs on the CUDA device and raises
-    without one.  The JAX package's other backends (``hostloop``, ``mesh``,
-    ``service``) raise ``NotImplementedError`` naming their ROADMAP.md
-    queue A item."""
+    the driver, so ``total_gens`` does not apply); ``backend="hostloop"``
+    runs ``run_ipop_hostloop`` in chunks of ``chunk`` generations (bounded
+    by the budget and the stops, so ``total_gens`` does not apply either).
+    ``impl`` picks the tier on every backend (``kernels/ops.py``) and is
+    validated first.  ``key`` is an int seed or a (2,) key tensor
+    (``core/prng.py``).  ``device=None`` runs on the CUDA device and
+    raises without one.  The JAX package's ``mesh`` and ``service``
+    backends raise ``NotImplementedError`` naming their ROADMAP.md queue A
+    items."""
     ops.validate_impl(impl)
+    if backend in ("bucketed", "hostloop") and total_gens is not None:
+        raise ValueError(f"total_gens only applies to backend='ladder', not "
+                         f"{backend!r}")
     if backend == "bucketed":
-        if total_gens is not None:
-            raise ValueError("total_gens only applies to backend='ladder'; "
-                             "the segment driver sizes its own segments")
         engine_b = bucketed_mod.BucketedLadderEngine(
             n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
             domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
@@ -110,13 +177,14 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             engine_b, key, fitness_fn)
         return _result_from_ladder(engine_b.full, carry, trace, log)
     if backend == "hostloop":
-        raise NotImplementedError(
-            "backend='hostloop' is not ported; 'ladder' and 'bucketed' are "
-            "(ROADMAP.md, queue A item 7)")
+        return run_ipop_hostloop(
+            fitness_fn, n, key, lam_start=lam_start, kmax_exp=kmax_exp,
+            max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,
+            chunk=chunk, impl=impl, dtype=dtype, device=device)
     if backend in ("mesh", "service"):
         raise NotImplementedError(
-            f"backend={backend!r} is not ported; 'ladder' and 'bucketed' "
-            "are (ROADMAP.md, queue A items 9-11)")
+            f"backend={backend!r} is not ported; 'ladder', 'bucketed' and "
+            "'hostloop' are (ROADMAP.md, queue A items 9-11)")
     if backend != "ladder":
         raise ValueError(f"unknown backend {backend!r}")
     engine = ladder_mod.LadderEngine(
@@ -125,3 +193,79 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
         impl=impl, dtype=dtype, device=device)
     carry, trace = engine.run(key, fitness_fn, total_gens)
     return _result_from_ladder(engine, carry, trace)
+
+
+def _read_chunk(best_f, fevals, reasons):
+    """The per-generation records of a chunk ((m,) tensors each) in one
+    device→host transfer: best values, evaluations, stop reasons."""
+    m = best_f.shape[0]
+    packed = torch.cat([best_f.to(torch.float64).view(torch.int64),
+                        fevals.long(), reasons.long()]).cpu().numpy()
+    return (packed[:m].view(np.float64), packed[m:2 * m],
+            packed[2 * m:].astype(np.int32))
+
+
+def run_ipop_hostloop(fitness_fn: Callable, n: int, key,
+                      lam_start: int = 12, kmax_exp: int = 8,
+                      max_evals: int = 200_000, domain=(-5.0, 5.0),
+                      sigma0_frac: float = 0.25, chunk: int = 32,
+                      impl: str = "auto", dtype: str = "float64", *,
+                      device=None) -> IPOPResult:
+    """The host-driven baseline: one descent at a time, ``chunk``
+    generations of ``ladder.padded_gen_step`` between host reads, the
+    descent cut at its first stop, and a Python restart on the next rung.
+    The keys are the ladder's (slot 0, incarnation k), so the trajectory is
+    the ladder's."""
+    engine = ladder_mod.LadderEngine(
+        n=n, lam_start=lam_start, kmax_exp=kmax_exp, schedule="sequential",
+        max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,
+        impl=impl, dtype=dtype, device=device)
+    cfg, dev = engine.cfg, engine.device
+    key = engine.base_key(key)
+    fit = ops.slot_fitness(fitness_fn, 1, cfg.tdtype)
+
+    total_evals = 0
+    best_f, best_x = np.inf, np.zeros(n)
+    descents: List[DescentTrace] = []
+    for k_exp in range(kmax_exp + 1):
+        lam = (2 ** k_exp) * lam_start
+        if total_evals + lam > max_evals:
+            break
+        params = select_params(engine.sparams, torch.tensor([k_exp],
+                                                            device=dev))
+        kd = ladder_mod.slot_key(key, 0, k_exp)
+        state = ladder_mod.fresh_state(cfg, kd[None], domain)
+        budget_gens = (max_evals - total_evals) // lam
+        gens_l, fe_l, bf_l = [], [], []
+        gen, reason = 0, 0
+        while gen < budget_gens:
+            m = min(chunk, budget_gens - gen)
+            rec = []
+            for g in range(gen, gen + m):
+                state = ladder_mod.padded_gen_step(
+                    cfg, params, state, ladder_mod.gen_key(kd, g)[None], fit,
+                    impl)
+                rec.append((state.best_f, state.fevals, state.stop_reason))
+            bfs, fes, reasons = _read_chunk(*(torch.cat(r) for r in
+                                              zip(*rec)))
+            stops = reasons > 0
+            n_valid = int(np.argmax(stops)) + 1 if stops.any() else m
+            gens_l.extend(range(gen + 1, gen + n_valid + 1))
+            fe_l.extend(fes[:n_valid])
+            bf_l.extend(bfs[:n_valid])
+            gen += n_valid
+            reason = int(reasons[-1])
+            if stops.any():
+                break
+
+        total_evals += int(fe_l[-1]) if fe_l else 0
+        if bf_l and bf_l[-1] < best_f:
+            best_f = float(bf_l[-1])
+            best_x = state.best_x[0].cpu().numpy()
+        descents.append(DescentTrace(
+            k_exp=k_exp, lam=lam, gens=np.asarray(gens_l, np.int64),
+            fevals=np.asarray(fe_l, dtype=np.int64),
+            best_f=np.asarray(bf_l, dtype=np.float64), stop_reason=reason))
+
+    return IPOPResult(best_f=best_f, best_x=best_x,
+                      total_fevals=total_evals, descents=descents)

@@ -1,37 +1,51 @@
-"""The IPOP restart ladder on the device (paper Alg. 2) — port of the
-single-problem part of ``repro/core/ladder.py``.
+"""The IPOP restart ladder on the device (paper Alg. 2) — port of
+``repro/core/ladder.py``.
 
 All rungs K = 2⁰..2^kmax share one λ_max-padded ``CMAConfig`` and a stacked
 ``CMAParams``; descent slots live in one slot-stacked ``CMAState`` and
 advance together, one generation per ``slots_gen_step``.  When a slot's
 stop check fires it restarts in place from a fresh key with the doubled-λ
-parameters gathered from the stack.  Stop, restart and budget gates are
+parameters gathered from the stack (``restart_mode="same_k"`` keeps a
+concurrent slot on its rung).  Stop, restart and budget gates are
 ``torch.where`` on per-slot masks: the port's code reads no tensor back to
 the host inside the generation loop.  (``torch.linalg.eigh`` checks its
 solver status on the host on a CUDA device, once per eigen block.)  The
 per-generation trace is stacked once, at the end of ``run_scan``.
 
+A campaign (``run_campaign``) runs B problems at once: the carry's leaves
+gain a leading member axis (B, S, ...), and ``slots_gen_step`` lays the
+states out as B·S slots for the sample and update ops, so each op is one
+launch a generation whatever B is (``torch.func.vmap`` cannot batch the
+ctypes-bound kernels).  The budget gate, the best of the slots and the
+evaluation count work per member; each member's base key is
+``fold_in(PRNGKey(seed), j)``, as in the JAX package.
+
 Schedules: ``sequential`` (one slot walks the ladder) and ``concurrent``
-(kmax+1 slots, one per rung).  ``impl`` picks the sampling tier
-(``kernels/ops.py``): the row-keyed draw handed to the sample kernel
-(``"auto"``) or the counter stream drawn inside it (``"kernel_rng"``).
-``slots_gen_step(bucket_cap=k)`` is the step of the rung-bucketed programs
-(``core/bucketed.py``).  ``run_concurrent`` runs all rungs on the
-K-Distributed strategy instead (``core/strategies.py``).  Not ported yet
-(ROADMAP.md): the flat eigen schedule, campaigns over many problems, the
-``eager`` tiers on the ladder.
+(kmax+1 slots, one per rung).  ``impl`` picks the tier (``kernels/ops.py``):
+the row-keyed draw handed to the sample kernel (``"auto"``), the counter
+stream drawn inside it (``"kernel_rng"``), or the plain versions on any
+device (``"eager"``, and ``"eager_unfused"`` with the moments op soup of
+``padded_gen_step``).  ``eigen_schedule="flat"`` runs one generation at a
+time with the per-descent ``"lazy"`` eigen cadence; ``"nested"`` runs eigen
+blocks (``scan_eigen_blocks``).  ``slots_gen_step(bucket_cap=k)`` is the
+step of the rung-bucketed programs (``core/bucketed.py``).
+``run_concurrent`` runs all rungs on the K-Distributed strategy instead
+(``core/strategies.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import cmaes, prng
 from repro_torch.core.device import resolve_device
+from repro_torch.core.eval_dispatch import FusableEval
 from repro_torch.core.params import (CMAConfig, default_max_iter,
                                      ladder_params, select_params)
+from repro_torch.fitness import bbob
 from repro_torch.kernels import ops
 
 
@@ -134,11 +148,36 @@ def _generation_from_sample(cfg: CMAConfig, params_k,
     return cmaes.tree_select(states.stop, states, new)
 
 
+def padded_gen_step(cfg: CMAConfig, params, states: cmaes.CMAState,
+                    kgs: torch.Tensor, fitness_fn: Callable,
+                    impl: str = "auto", eigen: str = "lazy") -> cmaes.CMAState:
+    """One λ_max-padded generation of every slot of ``states`` from its
+    sampling key ``kgs`` (S, 2): rows at or beyond a slot's λ get +inf.
+    The fused generation unless ``impl="eager_unfused"``, which keeps the
+    moments op soup (``cmaes.compute_moments`` + ``masked_update``); as in
+    the fused one, stopped slots keep their state.  The host loop's step,
+    and the ladder's."""
+    if ops.use_fused(impl):
+        return _slots_fused_update(cfg, params, states, kgs, fitness_fn,
+                                   eigen, impl)
+    lam_max = cfg.lam_max
+    Y, X = cmaes.sample_population(states, kgs, lam_max, impl=impl)
+    rows = torch.arange(lam_max, device=X.device)
+    F = torch.where(rows[None, :] < params.lam[:, None],
+                    _evaluate(fitness_fn, X), torch.inf)
+    mom = cmaes.compute_moments(Y, F, X, params, lam_max, impl=impl)
+    return cmaes.masked_update(cfg, params, states, mom, impl=impl,
+                               eigen=eigen)
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
 class LadderCarry(NamedTuple):
+    """Leaves (S, ...) for one problem; a campaign's carry has a leading
+    member axis: states (B, S, ...), the per-slot leaves (B, S) and the
+    per-member ones (B,) / (B, n)."""
     states: cmaes.CMAState      # (S, ...) stacked descent slots
     k_idx: torch.Tensor         # (S,) int32 rung index, λ = 2ᵏ·λ_start
     incarnation: torch.Tensor   # (S,) int32 restarts of this slot so far
@@ -149,7 +188,8 @@ class LadderCarry(NamedTuple):
 
 
 class LadderTrace(NamedTuple):
-    """Per-generation record; leaves (S,) per generation unless noted."""
+    """Per-generation record; leaves (S,) per generation unless noted (a
+    campaign's carry a leading member axis)."""
     ran: torch.Tensor           # bool, slot executed this generation
     k_idx: torch.Tensor         # int32 rung during this generation
     gen: torch.Tensor           # int32 within-descent generation (1-based)
@@ -161,65 +201,119 @@ class LadderTrace(NamedTuple):
     global_best: torch.Tensor   # () best across slots and restarts
 
 
+def _lift(tree):
+    """A one-problem carry or trace as a campaign's of one member."""
+    return type(tree)(*(_lift(x) if isinstance(x, tuple) else x[None]
+                        for x in tree))
+
+
+def _drop(tree):
+    """The inverse of ``_lift``."""
+    return type(tree)(*(_drop(x) if isinstance(x, tuple) else x[0]
+                        for x in tree))
+
+
+def flat_slots(states: cmaes.CMAState) -> cmaes.CMAState:
+    """(B, S, ...) states as B·S slots."""
+    return cmaes.CMAState(*(x.reshape((-1,) + tuple(x.shape[2:]))
+                            for x in states))
+
+
+def member_slots(states: cmaes.CMAState, B: int) -> cmaes.CMAState:
+    """B·S slots as (B, S, ...) states."""
+    return cmaes.CMAState(*(x.reshape((B, -1) + tuple(x.shape[1:]))
+                            for x in states))
+
+
+def member_rows(fitness_fn: Callable, B: int) -> Callable:
+    """A campaign fitness (X (B, rows, n) → (B, rows)) as the step's
+    fitness of flat rows: member b's rows are the b-th block of B.  Its
+    separable coefficients, if any, ride along."""
+    sep = getattr(fitness_fn, "sep", None)
+    fn = fitness_fn if sep is None else fitness_fn.fn
+
+    def rows(X):
+        return fn(X.reshape((B, -1, X.shape[-1]))).reshape(-1)
+    return rows if sep is None else FusableEval(rows, sep)
+
+
 def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
                    base_key: torch.Tensor, fitness_fn: Callable, *,
                    max_evals: int, kmax_exp: int,
-                   schedule: str = "sequential",
+                   schedule: str = "sequential", restart_mode: str = "double",
                    domain: Tuple[float, float] = (-5.0, 5.0),
                    impl: str = "auto", eigen: str = "lazy",
                    bucket_cap: Optional[int] = None
                    ) -> Tuple[LadderCarry, LadderTrace]:
-    """One generation over all slots: the budget gate, the fused update,
-    the global best, and the in-place doubled-λ restart or retirement.
+    """One generation over all slots: the budget gate, the generation, the
+    best value, and the in-place doubled-λ restart or retirement.
 
-    ``eigen`` is ``"lazy"`` (per-descent cadence), or ``"defer"`` /
-    ``"always"`` as ``scan_eigen_blocks`` passes them.  ``bucket_cap`` is
-    the highest rung the executing program holds (``cfg``/``sparams`` are
-    then a bucket's, ``core/bucketed.py``): a slot on a higher rung is
-    parked (``ran`` False, state frozen) until the driver moves it to a
-    wider bucket.  ``None`` means the program spans the whole ladder."""
-    S = carry.k_idx.shape[0]
+    ``carry`` is one problem's (``base_key`` (2,), ``fitness_fn`` of X
+    (rows, n)) or a campaign's (member axis; ``base_key`` (B, 2),
+    ``fitness_fn`` of X (B, rows, n)).  The sample and update ops run once
+    on all B·S slots.  ``eigen`` is ``"lazy"`` (per-descent cadence), or
+    ``"defer"`` / ``"always"`` as ``scan_eigen_blocks`` passes them.
+    ``bucket_cap`` is the highest rung the executing program holds
+    (``cfg``/``sparams`` are then a bucket's, ``core/bucketed.py``): a slot
+    on a higher rung is parked (``ran`` False, state frozen) until the
+    driver moves it to a wider bucket.  ``None`` means the program spans
+    the whole ladder."""
+    single = carry.k_idx.dim() == 1
+    if single:
+        carry, base_key = _lift(carry), base_key[None]
+    else:
+        fitness_fn = member_rows(fitness_fn, carry.k_idx.shape[0])
+    B, S = carry.k_idx.shape
+    n = carry.best_x.shape[-1]
     dev = carry.k_idx.device
     slot_ids = torch.arange(S, dtype=torch.int64, device=dev)
+    states = flat_slots(carry.states)
 
     gather_idx = (carry.k_idx if bucket_cap is None
                   else torch.clamp(carry.k_idx, max=bucket_cap))
-    params_k = select_params(sparams, gather_idx.long())
-    lam_k = params_k.lam.to(carry.total_fevals.dtype)
+    params_k = select_params(sparams, gather_idx.reshape(-1).long())
+    lam_k = params_k.lam.to(carry.total_fevals.dtype).reshape(B, S)
 
     # budget gate: a slot only starts a generation it can fully pay for;
     # concurrent slots are gated on the cumulative reservation before them
     runnable = carry.active
     if bucket_cap is not None:
         runnable = runnable & (carry.k_idx <= bucket_cap)
-    reserve = torch.cumsum(torch.where(runnable, lam_k, 0), 0)
-    ran = runnable & (carry.total_fevals + reserve <= max_evals)
+    reserve = torch.cumsum(torch.where(runnable, lam_k, 0), 1)
+    ran = runnable & (carry.total_fevals[:, None] + reserve <= max_evals)
 
-    kds = slot_key(base_key, slot_ids, carry.incarnation)
-    kgs = gen_key(kds, carry.states.gen)
-    upd = _slots_fused_update(cfg, params_k, carry.states, kgs, fitness_fn,
-                              eigen, impl)
-    new_states = cmaes.tree_select(ran, upd, carry.states)
+    kds = slot_key(base_key[:, None, :], slot_ids, carry.incarnation)
+    kgs = gen_key(kds.reshape(-1, 2), states.gen)
+    upd = padded_gen_step(cfg, params_k, states, kgs, fitness_fn, impl,
+                          eigen)
+    new_states = cmaes.tree_select(ran.reshape(-1), upd, states)
 
-    total_fevals = carry.total_fevals + torch.where(ran, lam_k, 0).sum()
+    total_fevals = carry.total_fevals + torch.where(ran, lam_k, 0).sum(1)
 
-    cand = torch.where(ran, new_states.best_f, torch.inf)
-    i_star = torch.argmin(cand).reshape(1)
-    c_star = cand.index_select(0, i_star)[0]
+    cand = torch.where(ran, new_states.best_f.reshape(B, S), torch.inf)
+    i_star = torch.argmin(cand, dim=1, keepdim=True)
+    c_star = cand.gather(1, i_star)[:, 0]
     better = c_star < carry.best_f
     best_f = torch.where(better, c_star, carry.best_f)
-    best_x = torch.where(better, new_states.best_x.index_select(0, i_star)[0],
-                         carry.best_x)
+    x_star = new_states.best_x.reshape(B, S, n).gather(
+        1, i_star[..., None].expand(B, 1, n))[:, 0]
+    best_x = torch.where(better[:, None], x_star, carry.best_x)
 
-    stopped = ran & new_states.stop
+    def per_slot(x):
+        return x.reshape(B, S)
+    stopped = ran & per_slot(new_states.stop)
     trace = LadderTrace(
-        ran=ran, k_idx=carry.k_idx, gen=new_states.gen,
-        fevals=new_states.fevals, best_f=new_states.best_f,
-        stop_reason=new_states.stop_reason, stopped=stopped,
+        ran=ran, k_idx=carry.k_idx, gen=per_slot(new_states.gen),
+        fevals=per_slot(new_states.fevals),
+        best_f=per_slot(new_states.best_f),
+        stop_reason=per_slot(new_states.stop_reason), stopped=stopped,
         total_fevals=total_fevals, global_best=best_f)
 
     # -- in-place restart: doubled-λ params gathered from the stack
-    next_k = carry.k_idx + 1
+    if schedule == "concurrent" and restart_mode == "same_k":
+        next_k = carry.k_idx
+    else:
+        next_k = carry.k_idx + 1
     if schedule == "sequential":
         retire = stopped & (next_k > kmax_exp)
     else:
@@ -230,14 +324,16 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
     inc_new = carry.incarnation + restart.to(torch.int32)
     active_new = carry.active & ~retire
 
-    fresh = fresh_state(cfg, slot_key(base_key, slot_ids, inc_new), domain)
-    fresh = fresh._replace(restarts=inc_new)
-    states_out = cmaes.tree_select(restart, fresh, new_states)
+    fresh = fresh_state(cfg, slot_key(base_key[:, None, :], slot_ids,
+                                      inc_new).reshape(-1, 2), domain)
+    fresh = fresh._replace(restarts=inc_new.reshape(-1))
+    states_out = cmaes.tree_select(restart.reshape(-1), fresh, new_states)
 
-    return LadderCarry(
-        states=states_out, k_idx=k_new, incarnation=inc_new,
-        active=active_new, total_fevals=total_fevals,
-        best_f=best_f, best_x=best_x), trace
+    out = LadderCarry(
+        states=member_slots(states_out, B), k_idx=k_new,
+        incarnation=inc_new, active=active_new, total_fevals=total_fevals,
+        best_f=best_f, best_x=best_x)
+    return (_drop(out), _drop(trace)) if single else (out, trace)
 
 
 def stack_traces(traces):
@@ -245,7 +341,7 @@ def stack_traces(traces):
     return type(traces[0])(*(torch.stack(leaves) for leaves in zip(*traces)))
 
 
-def scan(step_fn: Callable, carry, xs: torch.Tensor):
+def scan(step_fn: Callable, carry, xs):
     """``lax.scan`` in eager torch: ``step_fn(carry, x) -> (carry, trace)``
     for each x along the leading axis of ``xs``; returns the final carry
     and the stacked traces."""
@@ -279,6 +375,12 @@ def scan_eigen_blocks(step_fn: Callable, carry, interval: int,
     return carry, stack_traces(traces)
 
 
+def member_major(trace: LadderTrace) -> LadderTrace:
+    """A campaign's trace (T, B, ...) as (B, T, ...), the JAX package's
+    vmapped layout."""
+    return LadderTrace(*(x.movedim(0, 1) for x in trace))
+
+
 @dataclasses.dataclass
 class LadderEngine:
     """Stacked IPOP ladder: all rungs in one padded slot-stacked state."""
@@ -292,21 +394,19 @@ class LadderEngine:
     sigma0_frac: float = 0.25
     impl: str = "auto"
     dtype: str = "float64"
+    restart_mode: str = "double"        # concurrent slots: "double" | "same_k"
     eigen_interval: Optional[int] = None  # None: c-cmaes default (CMAConfig)
-    eigen_schedule: str = "nested"
+    eigen_schedule: str = "nested"      # "nested" | "flat"
     device: Optional[str] = None        # None: CUDA, raising without it
 
     def __post_init__(self):
         if self.schedule not in ("sequential", "concurrent"):
             raise ValueError(f"unknown schedule {self.schedule!r}")
-        if ops.validate_impl(self.impl) not in ops.KERNEL_TIERS:
-            raise NotImplementedError(
-                f"impl={self.impl!r} on the ladder is not ported; the ladder "
-                f"takes {ops.KERNEL_TIERS} (ROADMAP.md, queue A item 7)")
-        if self.eigen_schedule != "nested":
-            raise NotImplementedError(
-                f"eigen_schedule={self.eigen_schedule!r} is not ported; only "
-                "'nested' (ROADMAP.md, queue A item 7)")
+        if self.restart_mode not in ("double", "same_k"):
+            raise ValueError(f"unknown restart_mode {self.restart_mode!r}")
+        ops.validate_impl(self.impl)
+        if self.eigen_schedule not in ("nested", "flat"):
+            raise ValueError(f"unknown eigen_schedule {self.eigen_schedule!r}")
         if self.max_evals > torch.iinfo(torch.int64).max:
             raise ValueError(f"max_evals={self.max_evals} overflows int64")
         self.device = resolve_device(self.device)
@@ -318,6 +418,7 @@ class LadderEngine:
         self.sparams = ladder_params(self.cfg, self.lam_start, self.kmax_exp,
                                      device=self.device)
         self.n_slots = 1 if self.schedule == "sequential" else self.kmax_exp + 1
+        self._programs: set = set()
 
     def default_gens(self, total_gens: Optional[int] = None) -> int:
         """Upper bound on useful scan length for the sequential schedule."""
@@ -333,21 +434,28 @@ class LadderEngine:
         return prng.as_key(key, self.device)
 
     def init_carry(self, base_key: torch.Tensor) -> LadderCarry:
-        S, dev = self.n_slots, self.device
+        """Fresh carry of one problem (``base_key`` (2,)) or of a campaign's
+        members (``base_key`` (B, 2))."""
+        keys = base_key.reshape(-1, 2)
+        B, S, dev = keys.shape[0], self.n_slots, self.device
         slot_ids = torch.arange(S, dtype=torch.int64, device=dev)
         if self.schedule == "concurrent":
             k0 = slot_ids.to(torch.int32)        # slot i starts on rung i
         else:
             k0 = torch.zeros((S,), dtype=torch.int32, device=dev)
-        inc0 = torch.zeros((S,), dtype=torch.int32, device=dev)
-        states = fresh_state(self.cfg, slot_key(base_key, slot_ids, inc0),
+        k0 = k0.expand(B, S).contiguous()
+        inc0 = torch.zeros((B, S), dtype=torch.int32, device=dev)
+        states = fresh_state(self.cfg, slot_key(keys[:, None, :], slot_ids,
+                                                inc0).reshape(-1, 2),
                              self.domain)
-        return LadderCarry(
-            states=states, k_idx=k0, incarnation=inc0,
-            active=torch.ones((S,), dtype=torch.bool, device=dev),
-            total_fevals=torch.zeros((), dtype=torch.int64, device=dev),
-            best_f=torch.tensor(torch.inf, dtype=self.cfg.tdtype, device=dev),
-            best_x=torch.zeros((self.n,), dtype=self.cfg.tdtype, device=dev))
+        dt = self.cfg.tdtype
+        carry = LadderCarry(
+            states=member_slots(states, B), k_idx=k0, incarnation=inc0,
+            active=torch.ones((B, S), dtype=torch.bool, device=dev),
+            total_fevals=torch.zeros((B,), dtype=torch.int64, device=dev),
+            best_f=torch.full((B,), torch.inf, dtype=dt, device=dev),
+            best_x=torch.zeros((B, self.n), dtype=dt, device=dev))
+        return _drop(carry) if base_key.dim() == 1 else carry
 
     def gen_step(self, carry: LadderCarry, base_key: torch.Tensor,
                  fitness_fn: Callable, eigen: str = "lazy"
@@ -358,20 +466,28 @@ class LadderEngine:
         return slots_gen_step(
             self.cfg, self.sparams, carry, base_key, fitness_fn,
             max_evals=self.max_evals, kmax_exp=self.kmax_exp,
-            schedule=self.schedule, domain=self.domain, impl=self.impl,
-            eigen=eigen)
+            schedule=self.schedule, restart_mode=self.restart_mode,
+            domain=self.domain, impl=self.impl, eigen=eigen)
 
     def run_scan(self, base_key: torch.Tensor, fitness_fn: Callable,
                  total_gens: int) -> Tuple[LadderCarry, LadderTrace]:
-        """The whole ladder; its length is ``total_gens`` rounded up to a
-        whole number of eigen blocks."""
-        interval = int(self.cfg.eigen_interval)
-        n_blocks = -(-int(total_gens) // interval)
+        """The whole ladder of one problem (``base_key`` (2,)) or of a
+        campaign (``base_key`` (B, 2), a campaign fitness); nested in eigen
+        blocks, its length is ``total_gens`` rounded up to a whole number
+        of blocks.  ``eigen_schedule="flat"`` runs ``total_gens``
+        generations with the per-descent ``"lazy"`` cadence."""
         fitness_fn = ops.slot_fitness(fitness_fn, self.n_slots,
                                       self.cfg.tdtype)
-        return scan_eigen_blocks(
-            lambda c, eigen: self.gen_step(c, base_key, fitness_fn, eigen),
-            self.init_carry(base_key), interval, n_blocks)
+        carry0 = self.init_carry(base_key)
+
+        def step(c, eigen):
+            return self.gen_step(c, base_key, fitness_fn, eigen)
+        if self.eigen_schedule == "flat":
+            return scan(lambda c, _: step(c, "lazy"), carry0,
+                        range(int(total_gens)))
+        interval = int(self.cfg.eigen_interval)
+        n_blocks = -(-int(total_gens) // interval)
+        return scan_eigen_blocks(step, carry0, interval, n_blocks)
 
     def run(self, key, fitness_fn: Callable,
             total_gens: Optional[int] = None
@@ -379,6 +495,106 @@ class LadderEngine:
         """Single-problem run; ``key`` is an int seed or a (2,) key."""
         return self.run_scan(self.base_key(key), fitness_fn,
                              self.default_gens(total_gens))
+
+    def campaign_runner(self, branch_fids: Tuple[int, ...],
+                        total_gens: int) -> Callable:
+        """The campaign program of a fid menu and a scan length:
+        ``run(keys (B, 2), stacked instance) -> (carry, trace)``, the trace
+        member-major (B, T, ...).  The port compiles nothing; the engine
+        records each distinct (menu, length) it hands out, which
+        ``compiles`` counts."""
+        menu, length = tuple(branch_fids), int(total_gens)
+        self._programs.add((menu, length))
+
+        def run(keys, inst):
+            carry, trace = self.run_scan(
+                keys, bbob.campaign_fitness(inst, menu), length)
+            return carry, member_major(trace)
+        return run
+
+    def compiles(self) -> int:
+        """Distinct campaign programs handed out (``campaign_runner``)."""
+        return len(self._programs)
+
+
+# ---------------------------------------------------------------------------
+# campaigns: many (function, instance, run) members in one program
+# ---------------------------------------------------------------------------
+
+def campaign_members(fids, instances=(1,), runs: int = 1) -> list:
+    """(fid, instance, run) per member, in the JAX package's order."""
+    return [(f, i, r) for f in fids for i in instances for r in range(runs)]
+
+
+def campaign_instances(members, n: int, dtype, device) -> bbob.BBOBInstance:
+    """The members' instances stacked (peaks padded); each distinct
+    (fid, instance) is made once."""
+    made = {}
+    for f, i, _r in members:
+        if (f, i) not in made:
+            made[(f, i)] = bbob.make_instance(f, n, i, dtype, device)
+    return bbob.stack_instances([made[(f, i)] for f, i, _r in members])
+
+
+def member_keys(seed: int, B: int, device) -> torch.Tensor:
+    """(B, 2): member j's base key ``fold_in(PRNGKey(seed), j)``."""
+    return prng.fold_in(prng.PRNGKey(seed, device=device),
+                        torch.arange(B, dtype=torch.int64, device=device))
+
+
+def host_trace(trace: LadderTrace) -> LadderTrace:
+    return LadderTrace(*(x.cpu().numpy() for x in trace))
+
+
+@dataclasses.dataclass
+class CampaignResult:
+    members: List[Tuple[int, int, int]]   # (fid, instance, run) per member
+    f_opt: np.ndarray                     # (B,)
+    best_f: np.ndarray                    # (B,)
+    best_x: np.ndarray                    # (B, n)
+    total_fevals: np.ndarray              # (B,)
+    trace: LadderTrace                    # numpy leaves (B, T, S) / (B, T)
+    compiles: int                         # distinct programs dispatched
+
+    def hit_evals(self, targets: np.ndarray) -> np.ndarray:
+        """(B, len(targets)) first total-eval count reaching best−f_opt ≤ t
+        (+inf where never reached).  The running-best error of a row is
+        non-increasing, so the generations that reach a target form a
+        suffix, whose length one ``np.searchsorted`` over the reversed row
+        finds for all targets at once."""
+        gb = np.minimum.accumulate(np.asarray(self.trace.global_best), axis=1)
+        fe = np.asarray(self.trace.total_fevals)
+        err = gb - np.asarray(self.f_opt)[:, None]
+        targets = np.asarray(targets, np.float64)
+        T = err.shape[1]
+        out = np.full((err.shape[0], targets.shape[0]), np.inf)
+        for b, row in enumerate(err):
+            n_hit = np.searchsorted(row[::-1], targets, side="right")
+            hit = n_hit > 0
+            out[b, hit] = fe[b, T - n_hit[hit]]
+        return out
+
+
+def run_campaign(engine: LadderEngine, fids, instances=(1,), runs: int = 1,
+                 seed: int = 0,
+                 total_gens: Optional[int] = None) -> CampaignResult:
+    """A whole BBOB campaign in one ladder program: every (fid, instance,
+    run) triple is a member, the instances are stacked, and the fitness
+    makes one evaluator call per distinct fid a generation
+    (``bbob.StackedFitness``; the eval-fused sample kernel when the menu
+    is separable).  ``compiles`` is 1: one (menu, length) program."""
+    members = campaign_members(tuple(fids), instances, runs)
+    stacked = campaign_instances(members, engine.n, engine.cfg.tdtype,
+                                 engine.device)
+    runner = engine.campaign_runner(tuple(sorted(set(fids))),
+                                    engine.default_gens(total_gens))
+    carry, trace = runner(member_keys(seed, len(members), engine.device),
+                          stacked)
+    return CampaignResult(
+        members=members, f_opt=stacked.f_opt.cpu().numpy().astype(np.float64),
+        best_f=carry.best_f.cpu().numpy(), best_x=carry.best_x.cpu().numpy(),
+        total_fevals=carry.total_fevals.cpu().numpy(),
+        trace=host_trace(trace), compiles=engine.compiles())
 
 
 # ---------------------------------------------------------------------------

@@ -3,14 +3,18 @@
 The port keeps the JAX package's key schedule so that a trajectory started
 from the same integer seed sees the same random numbers in both packages.
 Implemented: ``PRNGKey``, ``fold_in``, ``split``, ``random_bits`` (32 and 64
-bit), ``uniform`` and ``normal``, exactly as jax 0.9 computes them for the
-threefry2x32 implementation with ``jax_threefry_partitionable=True``:
+bit), ``uniform``, ``normal`` and ``permutation``, exactly as jax 0.9
+computes them for the threefry2x32 implementation with
+``jax_threefry_partitionable=True``:
 
 * a key is two uint32 words; ``fold_in(k, d)`` hashes the counter pair
   ``(0, d)`` under ``k``; ``split(k, num)`` hashes ``(0, i)`` for i < num;
 * ``random_bits(k, shape)`` hashes the row-major flat index of each element
   as the counter pair ``(hi, lo)`` and keeps ``x0 ^ x1`` (32 bit) or
   ``x0 << 32 | x1`` (64 bit);
+* ``permutation(k, m)`` sorts ``arange(m)`` by 32-bit keys, in
+  ⌈3·ln m / ln(2³² − 1)⌉ rounds of ``k, sub = split(k)`` and a stable sort
+  by ``random_bits(sub, 32, (m,))``;
 * ``uniform`` keeps the top mantissa bits, scales to ``[lo, hi)`` with one
   fused multiply-add and clips at ``lo``; ``normal`` is ``√2·erf_inv(u)`` with u uniform on
   ``(nextafter(−1, 0), 1)``.
@@ -277,3 +281,16 @@ def normal(key: torch.Tensor, shape, dtype=torch.float64) -> torch.Tensor:
                                torch.tensor(0.0, dtype=dtype)))
     u = uniform(key, shape, dtype, lo, 1.0)
     return math.sqrt(2.0) * erf_inv(u)
+
+
+def permutation(key: torch.Tensor, m: int) -> torch.Tensor:
+    """``jax.random.permutation(key, m)`` for an int ``m``: ``arange(m)``
+    (int64) sorted stably by fresh 32-bit words in each round."""
+    m = int(m)
+    rounds = math.ceil(3 * math.log(max(1, m)) / math.log(MASK32))
+    x = torch.arange(m, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, 32, (m,)), stable=True).indices
+        x = x[order]
+    return x

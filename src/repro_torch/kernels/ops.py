@@ -85,13 +85,19 @@ def gen_sample(m, sigma, B, D, Z, impl: str = "auto"):
 def slot_sep(sep, S: int, dtype):
     """``bbob.SepCoeffs`` in the sample kernel's per-slot layout: scale and
     shift (S, n) and f_opt (S,) in ``dtype``, mode and valid (S,) int32,
-    all contiguous."""
-    n = sep.shift.shape[-1]
-    return sep._replace(scale=sep.scale.to(dtype).expand(S, n).contiguous(),
-                        shift=sep.shift.to(dtype).expand(S, n).contiguous(),
-                        f_opt=sep.f_opt.to(dtype).expand(S).contiguous(),
-                        mode=sep.mode.to(torch.int32).expand(S).contiguous(),
-                        valid=sep.valid.to(torch.int32).expand(S).contiguous())
+    all contiguous.  Stacked leaves (a campaign's B members, shift (B, n))
+    become (B·S, ...), each member's row repeated over its S slots."""
+    if sep.shift.dim() == 2:
+        def lay(t, dt):
+            return t.to(dt).repeat_interleave(S, dim=0).contiguous()
+    else:
+        def lay(t, dt):
+            return t.to(dt).expand((S,) + tuple(t.shape)).contiguous()
+    return sep._replace(scale=lay(sep.scale.expand(sep.shift.shape), dtype),
+                        shift=lay(sep.shift, dtype),
+                        f_opt=lay(sep.f_opt, dtype),
+                        mode=lay(sep.mode, torch.int32),
+                        valid=lay(sep.valid, torch.int32))
 
 
 def slot_fitness(fitness_fn, S: int, dtype):

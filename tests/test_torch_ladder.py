@@ -118,12 +118,16 @@ def test_run_ipop_validates_impl_first(backend):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tladder.LadderEngine(n=3, eigen_schedule="flat", device="cpu")
+    """The flat eigen schedule, the plain tiers and the host loop are
+    ported; unknown options raise ValueError and the mesh and service
+    backends name their ROADMAP.md items."""
+    with pytest.raises(ValueError):
+        tladder.LadderEngine(n=3, eigen_schedule="blocked", device="cpu")
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, impl="xla", device="cpu")
+    with pytest.raises(ValueError):
+        tladder.LadderEngine(n=3, restart_mode="half", device="cpu")
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tipop.run_ipop(fn, 3, 0, backend="mesh", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tipop.run_ipop(fn, 3, 0, backend="hostloop", device="cpu")
+    for backend in ("mesh", "service"):
+        with pytest.raises(NotImplementedError, match="items 9-11"):
+            tipop.run_ipop(fn, 3, 0, backend=backend, device="cpu")

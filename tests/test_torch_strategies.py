@@ -409,8 +409,8 @@ def test_strategies_need_cuda_unless_asked(monkeypatch):
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError):
-        tladder.LadderEngine(n=3, impl="eager", device="cpu")
+    with pytest.raises(ValueError):
+        tladder.LadderEngine(n=3, impl="xla", device="cpu")
     with pytest.raises(ValueError):
         tst.KDistributed(n=3, n_devices=3, comm="ring", device="cpu")
     with pytest.raises(ValueError):
