@@ -5,7 +5,8 @@ plain PyTorch versions.
     python3 chip_smoke.py
 
 Phases, one JSON line each with its seconds; any failed check raises
-(non-zero exit):
+(non-zero exit).  The whole script, the kernels' build included, is to
+finish within 1200 s on one H100; the cut depths below are made for that.
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
@@ -89,11 +90,11 @@ Phases, one JSON line each with its seconds; any failed check raises
    ints of every executed generation exactly;
 4. a whole IPOP run with restarts: ``run_ipop`` on f1 through the
    eval-fused sample kernel (n=40, λ_max=3072, 10 000 evaluations: cut
-   from 100 000, then from 50 000 in PR 19, to keep the script within its
-   time limit);
-4b. the same run through ``backend="bucketed", impl="kernel_rng"`` (the
-   eval kernel drawing its own Z), which must spend ``FEVALS_4B``
-   evaluations, then again with the speculative segment driver
+   from 100 000, then from 50 000 in PR 19, for the script's 1200 s;
+   ``BUDGET``);
+4b. the same run at 50 000 evaluations (``BUDGET_4B``) through
+   ``backend="bucketed", impl="kernel_rng"`` (the eval kernel drawing its
+   own Z), which must spend ``FEVALS_4B`` evaluations, then again with the speculative segment driver
    (``overlap=True``), whose result must be bit-identical;
 4c. float32 campaigns: ``run_ipop(dtype="float32")`` on f1 (n=40, 10 000
    evaluations) on the card on both backends under ``auto`` and
@@ -113,14 +114,15 @@ Phases, one JSON line each with its seconds; any failed check raises
    step;
 9. ``campaign_bbob24_n40``: ``run_campaign_bucketed`` over the 24 fids ×
    instances (1, 2) (48 members, n=40, float64, λ_start=12, kmax_exp=8,
-   10 000 evaluations a member, ``impl="auto"``), under ``policy="cover"``
-   and then ``"min"``: every member spends at most 10 000 evaluations, and
-   more than 10 000 less the λ of the rung it ends on unless it retired on
-   the last rung; at most 9 programs (``compiles``); exactly one sample
+   ``impl="auto"``), under ``policy="cover"`` with 10 000 evaluations a
+   member and then ``"min"`` with 6 000: every member spends at most its
+   budget, and more than the budget less the λ of the rung it ends on
+   unless it retired on the last rung; at most 9 programs (``compiles``); exactly one sample
    launch (row 1) and one update launch (row 6) a step, whatever the
    member count; every f1 member at f_opt + 1e-8 (f2 members are
    reported, not held to a target); ms a step, wall seconds, padding waste
-   and the ECDF per ``bbob.GROUPS`` entry over 51 targets 10²…10⁻⁸;
+   and the ECDF per ``bbob.GROUPS`` entry over 51 targets 10²…10⁻⁸; then
+   where a step's host time goes (``campaign_step_split``);
 9b. ``campaign_sep_rng_n40``: the (1, 2) menu × instances 1-4 × 2 runs (16
    members) under ``impl="kernel_rng"``: row 4, drawing Z in the kernel,
    with mixed per-member coefficients, and row 6; the same checks;
@@ -251,9 +253,12 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 LAM_START, KMAX = 12, 8                   # λ_max = 12·2⁸ = 3072
 GENS = 64                                 # phase 3's generations
-#: phases 4 and 4b's evaluations: cut from 50 000 in PR 19 to keep the
-#: script within its time limit as the campaign phases joined it
-BUDGET = 10_000
+#: the evaluations of phase 4 (cut from 50 000 in PR 19: with 4b at
+#: 50 000 and 3c at 6 000 the script took 1107 s of its 1200 on a slow
+#: host; phase 4's ladder pads every rung to λ_max, so its kernels' shape
+#: does not depend on the budget) and of phase 4b (whose widest bucket
+#: phase 5 times rows 4 and 6 at)
+BUDGET, BUDGET_4B = 10_000, 50_000
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
@@ -350,22 +355,26 @@ LANES_PER_SM, SMS = 64, 132
 RNG_FP64_OPS = {}
 #: phases 4b and 4c: the evaluations their runs spend (the RNG kernels keep
 #: the stream's bits wherever Z is drawn, so the runs keep their
-#: trajectories).  4b at 10 000: on the card at 50 000 its first descent
-#: ran 627 generations of λ = 12 and its second 452 of λ = 24, so at
-#: 10 000 the second is cut by the budget after 103 (49 908 at 50 000
-#: before PR 19)
-FEVALS_4B = 9_996
+#: trajectories)
+FEVALS_4B = 49_908
 FEVALS_4C = 9_996
 #: Z elements a thread of row 5's float64 kernel draws in its wide form
 #: (16 bytes of columns of one row, ``cma_gen_sample.cu``)
 RNG_ELEMENTS_PER_THREAD = 2
 #: the campaigns (phases 9-9d): at n = 40, every fid × instances (1, 2)
-#: with 10 000 evaluations a member (9), and the (1, 2) menu × instances
+#: with 10 000 evaluations a member under "cover" and 6 000 under "min",
+#: whose steps cost more evaluations of padding (still enough for every f1
+#: member to reach f_opt + 1e-8) (9), and the (1, 2) menu × instances
 #: 1-4 × 2 runs (9b, and phase 2's per-member coefficients); card against
 #: CPU at n = 8 (9c); the λ_max-padded ladder over the 24 fids at n = 1000
 #: for 16 generations, peak allocated memory under 20 GB (9d)
-CAMPAIGN = dict(n=40, instances=(1, 2), budget=10_000)
+CAMPAIGN = dict(n=40, instances=(1, 2), budget=10_000,
+                budgets={"cover": 10_000, "min": 6_000})
 CAMPAIGN_SEP = dict(fids=(1, 2), instances=(1, 2, 3, 4), runs=2)
+#: the generations of phase 9's step split (``campaign_step_split``):
+#: each unprofiled window's, and the profiled window's (whose trace of some
+#: 7 000 aten calls a step takes seconds a generation to read back)
+SPLIT_GENS, SPLIT_PROFILED_GENS = 12, 4
 CAMPAIGN_SEP_SLOTS = 16
 CAMPAIGN_SMALL = dict(fids=(1, 2, 8), instances=(1, 2), n=8, lam_start=16,
                       kmax_exp=2, max_evals=1500)
@@ -1245,7 +1254,7 @@ def phase_small_bucketed(dev):
     covariances have a repeated eigenvalue, whose eigenvectors cuSOLVER and
     LAPACK choose differently, and the two runs then sample different
     populations from the same distribution."""
-    # 3 000 evaluations: cut from 6 000 in PR 19 for the script's time
+    # 3 000 evaluations: cut from 6 000 in PR 19 for the script's 1200 s
     kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=3000)
     worst = {}
     for fid in (8, 1, 2):
@@ -1318,7 +1327,7 @@ def phase_bucketed_restarts(dev):
     """Phase 4's run through the bucketed backend and the in-kernel RNG
     eval kernel; then again with the speculative driver, bit-identical.
     Returns the launches and the widest λ the run reached."""
-    n, budget = RESTARTS["n"], BUDGET
+    n, budget = RESTARTS["n"], BUDGET_4B
     fn, inst = bbob.make_fitness(1, n, 1, device=dev)
     fit = bbob.fusable_fitness(inst, (1,), fn)
     kw = dict(lam_start=LAM_START, kmax_exp=KMAX, max_evals=budget,
@@ -1560,11 +1569,11 @@ def ecdf(res):
 
 
 def run_bucketed_campaign(dev, name, fids, instances, runs, impl, policy,
-                          sample_kernel):
-    """``run_campaign_bucketed`` at n = 40 with ``CAMPAIGN``'s budget a
+                          sample_kernel, budget):
+    """``run_campaign_bucketed`` at n = 40 with ``budget`` evaluations a
     member, checked (module docstring, phase 9) and summarised; returns
     the summary, its launches and the widest bucket it ran."""
-    n, budget = CAMPAIGN["n"], CAMPAIGN["budget"]
+    n = CAMPAIGN["n"]
     eng = bucketed.BucketedLadderEngine(
         n=n, lam_start=LAM_START, kmax_exp=KMAX, max_evals=budget, impl=impl,
         policy=policy, device=dev)
@@ -1586,7 +1595,8 @@ def run_bucketed_campaign(dev, name, fids, instances, runs, impl, policy,
     if not (err[f1] <= 1e-8).all():
         raise AssertionError(f"{where}: f1 members at {err[f1]}")
     f2 = np.array([f == 2 for f, _i, _r in res.members])
-    return {"members": len(res.members), "policy": policy, "wall_s": wall,
+    return {"members": len(res.members), "policy": policy, "budget": budget,
+            "wall_s": wall,
             "steps": steps, "ms_per_step": wall / steps * 1e3,
             "segments": len(res.segments), "pulls": res.pulls,
             "compiles": res.compiles, "padding_waste": res.padding_waste(),
@@ -1599,6 +1609,83 @@ def run_bucketed_campaign(dev, name, fids, instances, runs, impl, policy,
                 LAM_START << sg["bucket"] for sg in res.segments)
 
 
+def campaign_step_split(dev):
+    """Where a step of phase 9's campaign goes: its 48 members at bucket 0
+    (λ = 12, n = 40) for ``SPLIT_GENS`` generations from the start, once
+    with the suite's fitness (24 evaluator calls a step) and once with
+    f1's evaluator on every member (one call a step), unprofiled, in the
+    order suite, one, suite, one: ms a step each; then the suite's first
+    ``SPLIT_PROFILED_GENS`` generations under ``torch.profiler``: ms a
+    step, the device's busy ms a step and its kernels with the most
+    device time, the aten calls a step, and the host ms a step inside the
+    fitness and in the ``aten`` calls that take the most of it
+    (``index_select``, ``index_copy_`` and ``linalg_eigh``, which waits
+    for the device, among them)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    n, menu = CAMPAIGN["n"], tuple(range(1, 25))
+    eng = bucketed.BucketedLadderEngine(
+        n=n, lam_start=LAM_START, kmax_exp=KMAX, max_evals=10 ** 9,
+        device=dev)
+    members = ladder.campaign_members(menu, CAMPAIGN["instances"])
+    stacked = ladder.campaign_instances(members, n, torch.float64, dev)
+    keys = ladder.member_keys(0, len(members), dev)
+    suite = bbob.campaign_fitness(stacked, menu)
+    one = bbob.StackedFitness(
+        stacked._replace(fid=torch.ones_like(stacked.fid)), (1,))
+
+    def window(fit, gens=SPLIT_GENS):
+        run = eng.segment_runner(0, menu, gens)
+        carry = eng.init_carry(keys)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(keys, fit, carry)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / gens * 1e3
+
+    def traced(X):
+        with record_function("campaign_fitness"):
+            return suite(X)
+    unprofiled = {"suite": [], "one": []}
+    for _ in range(2):
+        unprofiled["suite"].append(window(suite))
+        unprofiled["one"].append(window(one))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_ms = window(traced, SPLIT_PROFILED_GENS)
+    gens = SPLIT_PROFILED_GENS
+    evts = prof.key_averages()
+    host = {e.key: e for e in evts
+            if str(getattr(e, "device_type", "")).endswith("CPU")}
+    on_device = [e for e in evts
+                 if "CUDA" in str(getattr(e, "device_type", ""))
+                 and profile_update.device_us(e) > 0
+                 and e.key != "campaign_fitness"]    # the span, not a kernel
+    busy_us = sum(profile_update.device_us(e) for e in on_device)
+    top = sorted((e for k, e in host.items() if k.startswith("aten::")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
+
+    def per_step(e):
+        return {"calls": e.count / gens,
+                "host_ms": e.cpu_time_total / 1e3 / gens,
+                "self_host_ms": e.self_cpu_time_total / 1e3 / gens}
+    return {"members": len(members), "gens": SPLIT_GENS,
+            "profiled_gens": gens, "ms_per_step": unprofiled,
+            "profiled_ms_per_step": profiled_ms,
+            "device_busy_ms_per_step": busy_us / 1e3 / gens,
+            "device_top": {e.key[:80]: {
+                "launches": e.count / gens,
+                "device_ms": profile_update.device_us(e) / 1e3 / gens}
+                for e in sorted(on_device, key=profile_update.device_us,
+                                reverse=True)[:6]},
+            "aten_calls_per_step": sum(e.count for k, e in host.items()
+                                       if k.startswith("aten::")) / gens,
+            "fitness": per_step(host["campaign_fitness"]),
+            "aten": {k: per_step(host[k]) for k in (
+                "aten::index_select", "aten::index_copy_",
+                "aten::linalg_eigh") if k in host},
+            "aten_top_self": {e.key: per_step(e) for e in top}}
+
+
 def phase_campaign_n40(dev):
     """Phase 9: all 24 fids × instances (1, 2) through the bucketed driver,
     under both policies.  Returns the launches and the widest bucket."""
@@ -1606,12 +1693,12 @@ def phase_campaign_n40(dev):
     for policy in ("cover", "min"):
         out[policy], ln, wd = run_bucketed_campaign(
             dev, "campaign_bbob24_n40", range(1, 25), CAMPAIGN["instances"],
-            1, "auto", policy, "cma_gen_sample")
+            1, "auto", policy, "cma_gen_sample", CAMPAIGN["budgets"][policy])
         widest = max(widest, wd)
         for k, v in ln.items():
             launches[k] += v
-    emit({"phase": "campaign_bbob24_n40", "n": CAMPAIGN["n"],
-          "budget_per_member": CAMPAIGN["budget"], "runs": out})
+    emit({"phase": "campaign_bbob24_n40", "n": CAMPAIGN["n"], "runs": out,
+          "step_split": campaign_step_split(dev)})
     return launches, widest
 
 
@@ -1621,7 +1708,7 @@ def phase_campaign_sep_rng(dev):
     summary, launches, widest = run_bucketed_campaign(
         dev, "campaign_sep_rng_n40", CAMPAIGN_SEP["fids"],
         CAMPAIGN_SEP["instances"], CAMPAIGN_SEP["runs"], "kernel_rng",
-        "cover", "cma_gen_sample_rng_eval")
+        "cover", "cma_gen_sample_rng_eval", CAMPAIGN["budget"])
     emit({"phase": "campaign_sep_rng_n40", "n": CAMPAIGN["n"],
           "budget_per_member": CAMPAIGN["budget"], **summary})
     return launches, widest
@@ -1823,45 +1910,24 @@ def phase_hostloop(dev):
     return launches
 
 
-def unqualified(fn):
-    """The last name of a mangled function's (nested) name: ``tile_kernel``
-    of ``_Z11tile_kernelIdEv…`` and ``epilogue_kernel`` of
-    ``_ZN12_GLOBAL__N_115epilogue_kernelIdEEv…``; an unmangled name as
-    is."""
-    m = re.match(r"_ZN?", fn)
-    if not m:
-        return fn
-    i, name = m.end(), fn
-    while i < len(fn) and fn[i].isdigit():
-        j = i
-        while fn[j].isdigit():
-            j += 1
-        name, i = fn[j:j + int(fn[i:j])], j + int(fn[i:j])
-    return name
-
-
-def kernel_symbols():
-    """The kernels of ``kernels/csrc``: each built library's functions
-    (``cuobjdump``) as mangled, and their unqualified names."""
-    mangled = {fn for lib in _build.build_all().values()
-               for fn in sass_functions(lib)}
-    return mangled, {unqualified(fn) for fn in mangled}
+#: the ``__global__`` functions of ``kernels/csrc``
+CSRC_KERNELS = ("tile_kernel", "stream_kernel", "eval_reduce_kernel",
+                "z_rng_kernel", "gram_kernel", "vec_small_kernel",
+                "t_kernel", "whiten_kernel", "paths_kernel",
+                "epilogue_kernel", "rank_mu_epilogue", "flash_f32_kernel",
+                "flash_bf16_kernel", "wkv6_kernel")
+#: one of them in a profiled kernel's name, demangled (a whole word) or
+#: mangled (after its length)
+CSRC_KERNEL_NAME = re.compile("|".join(
+    rf"(?<![A-Za-z_]){k}(?![A-Za-z0-9_])|{len(k)}{k}" for k in CSRC_KERNELS))
 
 
 def phase_no_fallback(dev):
     """A small ladder (f1, n = 8, eval-fused) under each tier on the card,
     under ``torch.profiler``: the plain tiers (``eager``,
     ``eager_unfused``) launch no kernel of ``kernels/csrc`` (no count, no
-    profiled kernel of those names), ``auto`` does (both)."""
+    profiled kernel of ``CSRC_KERNELS``), ``auto`` does (both)."""
     from torch.profiler import ProfilerActivity, profile
-    mangled, names = kernel_symbols()
-    pattern = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
-        sorted(map(re.escape, names), key=len, reverse=True))
-        + r")(?![A-Za-z0-9_])")
-
-    def ours(key):
-        """A profiled kernel's name, demangled or not, is one of ours."""
-        return any(m in key for m in mangled) or pattern.search(key)
     fn, inst = bbob.make_fitness(1, 8, 1, device=dev)
     fit = bbob.fusable_fitness(inst, (1,), fn)
     out = {}
@@ -1870,22 +1936,26 @@ def phase_no_fallback(dev):
                                   max_evals=10 ** 6, impl=impl, device=dev)
         torch.cuda.synchronize()
         cma_gen.reset_launches()
+        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             eng.run(3, fit, 8)
             torch.cuda.synchronize()
+        t1 = time.perf_counter()
         kernels = [e for e in prof.key_averages()
                    if profile_update.device_us(e) > 0]
-        found = {e.key[:80]: e.count for e in kernels if ours(e.key)}
+        found = {e.key[:80]: e.count for e in kernels
+                 if CSRC_KERNEL_NAME.search(e.key)}
         counted = sum(cma_gen.LAUNCHES.values())
         out[impl] = {"profiled": found, "counted": counted,
-                     "device_kernels": len(kernels)}
+                     "device_kernels": len(kernels), "run_s": t1 - t0,
+                     "read_s": time.perf_counter() - t1}
         kernel_tier = impl == "auto"
         if kernel_tier != bool(found) or kernel_tier != bool(counted):
             raise AssertionError(
                 f"no-fallback check, impl={impl}: profiled {found}, counted "
                 f"{counted}, device kernels "
                 f"{sorted(e.key[:60] for e in kernels)[:20]}")
-    emit({"phase": "no_fallback", "kernel_names": sorted(names), "runs": out})
+    emit({"phase": "no_fallback", "runs": out})
 
 
 def phase_strategies(dev):

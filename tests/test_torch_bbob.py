@@ -43,8 +43,11 @@ def _np(t):
 @pytest.mark.parametrize("fid", FIDS)
 @pytest.mark.parametrize("n", [2, 5, 40])
 def test_make_instance_matches(fid, n):
-    ji = jb.make_instance(fid, n, 1)
-    ti = tb.make_instance(fid, n, 1, device="cpu")
+    _assert_instance_matches(fid, jb.make_instance(fid, n, 1),
+                             tb.make_instance(fid, n, 1, device="cpu"))
+
+
+def _assert_instance_matches(fid, ji, ti):
     exact = ("f_opt", "peaks_y", "peaks_w") + (
         () if fid in (9, 19) else ("x_opt",))
     for f in exact:
@@ -98,10 +101,22 @@ def test_evaluate_matches(fid, n):
     assert not bad.any(), (np.flatnonzero(bad), got[bad], want[bad])
     if fid in (1, 2, 8):         # the optimum's value is f_opt exactly
         assert got[0] == float(ji.f_opt)
+    # make_fitness on the port's own instance 3: its leaves against JAX's,
+    # then its values against JAX's evaluator on the port's rotations (the
+    # two QRs may differ in the last ulp, which f16/f19/f23 amplify)
     fn, inst = tb.make_fitness(fid, n, 3, device="cpu")
-    np.testing.assert_array_equal(_np(fn(torch.tensor(X))),
-                                  _np(tb.evaluate(fid, inst,
-                                                  torch.tensor(X))))
+    _assert_instance_matches(fid, ji, inst)
+    own = ji._replace(R=jnp.asarray(_np(inst.R)), Q=jnp.asarray(_np(inst.Q)),
+                      x_opt=jnp.asarray(_np(inst.x_opt)))
+    want = np.asarray(jb.evaluate(fid, own, jnp.asarray(X)))
+    got = _np(fn(torch.tensor(X)))
+    bad = ~(np.abs(got - want) <= RTOL.get(fid, 1e-12) * np.abs(want))
+    if fid in (7, 23):
+        bad &= ~_near_rounding(fid, own, jnp.asarray(X))
+    assert not bad.any(), (np.flatnonzero(bad), got[bad], want[bad])
+    if fid in (1, 2, 8):         # no rotation: JAX's own instance exactly
+        np.testing.assert_allclose(got, np.asarray(
+            jb.evaluate(fid, ji, jnp.asarray(X))), rtol=1e-12)
 
 
 @pytest.mark.parametrize("m", [1, 2, 20, 100, 2000])

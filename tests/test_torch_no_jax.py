@@ -71,3 +71,22 @@ def test_fitness_factories_follow_the_device_rule(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         bbob.make_instance(1, 3, 1)
     assert bbob.make_instance(1, 3, 1, device="cpu").x_opt.device.type == "cpu"
+
+
+def test_smoke_names_every_csrc_kernel():
+    """chip_smoke.py's no-fallback check looks for ``CSRC_KERNELS`` among
+    the profiled kernels: the tuple is every ``__global__`` function of
+    ``kernels/csrc``."""
+    import ast
+    import re
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    named = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", "") == "CSRC_KERNELS")
+    src = "".join(p.read_text() for p in sorted(
+        (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu*")))
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|"
+                      r"\([^()]*\))*\)\s*)?(\w+)\s*\(")
+    found = set(decl.findall(src))
+    assert len(found) >= 14
+    assert set(named) == found, (set(named) ^ found)
