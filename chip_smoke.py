@@ -65,7 +65,9 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    (λ, n) = (12·2ᵏ, 40), k = 0…8, with the (1, 2) menu's real per-member
    coefficients (f1 and f2 × instances 1-4 × 2 runs, one member made
    invalid: modes, scales, shifts and f_opt rows mixed in one launch),
-   rows 1-4 and 6; S = 48 at the same widths, rows 1, 3 and 6; and rows 1
+   rows 1-4 and 6; S = 48 and S = 6 (phase 10b's S2 islands) at the same
+   widths, rows 1, 3 and 6; rows 2 and 6 at phase 10's S1 call (8, 12,
+   1000) with the (1, 2) menu's coefficients; and rows 1
    and 6 at phase 9d's (24, 3072, 1000), whose update plan (chunks, scratch
    bytes) the line gives; each against its plain version and bit-identical
    on a second launch into NaN-filled memory, float64 and float32;
@@ -144,6 +146,33 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    ``impl="eager"`` and ``"eager_unfused"`` launches no kernel of
    ``kernels/csrc`` (none counted, none of their names in a
    ``torch.profiler`` trace); under ``"auto"`` it does, both ways;
+10. ``mesh_n1000``: the mesh campaign engine (``run_campaign_mesh``) on
+   8 islands of the card (S2's islands in turn): fids (1, 2) × instance
+   1 × 4 runs at n = 1000, λ_start = 12, kmax_exp = 8, float64, 192
+   evaluations a member (16 generations on rung 0, one segment;
+   ``MESH``, cut for the script's time), under S1 (``"ordered"``, with
+   and without the speculative segment) and S2 (``"concurrent"``), and
+   ``run_campaign_bucketed`` on the same members: all give equal ints
+   (evaluations, every int leaf of the trace) and best values within
+   1e-9 (``f_err``); S1 one sample (row 2) and one update launch a step
+   for all members, S2 one of each an island a step; ms a generation
+   (S2's also an island's), peak allocated memory;
+10b. ``mesh_campaign_n40``: phase 9's 48 members (24 fids × instances 1
+   and 2, n = 40) on 8 islands, 3 000 evaluations a member
+   (``MESH_CAMPAIGN``), under S1 (without the speculative segment) and
+   S2: budgets as phase 9 holds them, launches as phase 10; wall
+   seconds, segments and exchange rounds, padded and useful evaluations,
+   padding waste, the ECDF per BBOB group, and the padding S2 saves
+   against S1;
+10c. ``mesh_card_vs_cpu``: n = 8, fids (1, 2) × 4 runs on 4 islands, 200
+   evaluations a member, both strategies under ``auto`` and
+   ``kernel_rng``, card against CPU: ints equal, best values within 1e-9;
+   ``run_ipop(backend="mesh")`` under both strategies on f1 (3 000
+   evaluations, a restart) and f2 (1 000), card against CPU: evaluations
+   and descents equal, bests within 1e-9, one sample and one update
+   launch a step the engine launched; ``eager`` under S1 and
+   ``eager_unfused`` under S2 (100 evaluations a member) launch no kernel
+   on the card;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -188,8 +217,10 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    four evaluations under ``torch.profiler`` (device busy time and share,
    aten calls, the kernels with the most device time);
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c and 9d; the campaign paths
-   at (members, widest bucket, 40) and (24, 3072, 1000)) its launches, its
+   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c, 9d, 10, 10b and 10c; the
+   campaign paths at (members, widest bucket, 40) and (24, 3072, 1000),
+   the mesh paths at S1's call (8, 12, 1000) and (48, widest, 40) and S2's
+   island (1, 12, 1000) and (6, widest, 40)) its launches, its
    time, the plain version's time, one PyTorch call's time (none for the Z
    stream alone) and the least time the card could take (bound: the largest
    of the bytes over the memory's rate, the FP64 tensor-core operations,
@@ -207,7 +238,8 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    ``profile_call`` over 20 calls beside the wall-clock ms: each kernel's
    device µs per launch and the launches ``torch.profiler`` recorded, the
    CUDA-event ms and the host µs of a call.  Rows 1-4 at the bucketed
-   paths' shapes give the CUDA kernels a call launches (from the profiler):
+   paths' shapes give the CUDA kernels a call launches (the kernels the
+   profiler records over three windows of 20 calls):
    an RNG call as many as the Z-operand call of its shape where it draws Z
    in the kernel (n ≤ 64), one more (row 5's) on wider rows.
 
@@ -217,6 +249,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -224,6 +257,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -236,12 +270,14 @@ from repro_torch.core import (bucketed, cmaes, ipop, ladder,  # noqa: E402
                               strategies)
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
+from repro_torch.distributed import mesh_engine  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
 from repro_torch.fitness.nn_fitness import make_nn_fitness  # noqa: E402
 from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
                                  cma_update, flash_attention, ops, ref,
                                  rwkv6_wkv, sample_plan)
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch.mesh import make_campaign_mesh  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from tools import profile_update  # noqa: E402
@@ -278,7 +314,11 @@ PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1),
          "hostloop_f1": (RESTARTS, 1),
          "campaign_bbob24_n40": (None, None),
          "campaign_sep_rng_n40": (None, None),
-         "campaign_bbob24_n1000": (dict(MAIN, S=24), None)}
+         "campaign_bbob24_n1000": (dict(MAIN, S=24), None),
+         "mesh_n1000_s1": (dict(MAIN, S=8, lam=LAM_START), 1),
+         "mesh_n1000_s2": (dict(MAIN, lam=LAM_START), 1),
+         "mesh_campaign_n40_s1": (None, None),
+         "mesh_campaign_n40_s2": (None, None)}
 _SAMPLE_CU = "src/repro_torch/kernels/csrc/cma_gen_sample.cu"
 SOURCES = {
     "cma_gen_sample": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:91"),
@@ -379,8 +419,9 @@ CAMPAIGN_SEP_SLOTS = 16
 CAMPAIGN_SMALL = dict(fids=(1, 2, 8), instances=(1, 2), n=8, lam_start=16,
                       kmax_exp=2, max_evals=1500)
 CAMPAIGN_WIDE = dict(members=24, gens=16, peak_gb=20.0)
-#: phase 2's member counts at the campaign widths (12·2ᵏ, 40)
-CAMPAIGN_SLOTS = (CAMPAIGN_SEP_SLOTS, 48)
+#: phase 2's member counts at the campaign widths (12·2ᵏ, 40): phase 9b's,
+#: phase 9's (and 10b's S1) and 10b's S2 islands'
+CAMPAIGN_SLOTS = (CAMPAIGN_SEP_SLOTS, 48, 6)
 #: the ECDF's 51 targets, 10^2 … 10^-8
 ECDF_TARGETS = 10.0 ** np.linspace(2, -8, 51)
 #: phase 9c's evaluators, card against CPU: relative tolerance per fid
@@ -392,6 +433,28 @@ ECDF_TARGETS = 10.0 ** np.linspace(2, -8, 51)
 EVAL_RTOL = {16: 1e-9, 19: 1e-9, 17: 1e-11, 18: 1e-11, 23: 1e-11}
 #: phase 4d: the host-loop backend on f1
 HOSTLOOP = dict(n=40, budget=10_000)
+#: phases 10-10c, the mesh campaign engine on islands of the one card:
+#: 10 fids (1, 2) × instance 1 × 4 runs at n = 1000 on 8 islands, 192
+#: evaluations a member (16 generations on rung 0, so one segment; cut
+#: from 1 728 for the script's 1200 s: at n = 1000 a member climbs no rung
+#: within a budget the script can pay); 10b phase 9's 48 members at n = 40
+#: on 8 islands, 3 000 evaluations a member (phase 9 runs 10 000 and
+#: 6 000), where members climb at different times, so S2 pads less than
+#: S1 (184 320 against 152 064 padded evaluations on the CPU), S1 without
+#: the speculative segment (phase 10 times it both ways; the padding counts
+#: accepted segments only); 10c n = 8, fids (1, 2) × 4 runs on 4 islands,
+#: 200 evaluations a member, card against CPU, and each plain tier once
+#: at 100
+MESH = dict(islands=8, fids=(1, 2), runs=4, budget=192)
+MESH_CAMPAIGN = dict(islands=8, budget=3000)
+MESH_SMALL = dict(islands=4, fids=(1, 2), runs=4, n=8, lam_start=16,
+                  kmax_exp=2, max_evals=200)
+MESH_PLAIN_BUDGET = 100
+#: phase 10c's ``run_ipop(backend="mesh")`` at n = 8 on one island: each
+#: fid's evaluations, f1's enough for a restart (its first descent stops
+#: after 2 672), f2's for one descent
+MESH_IPOP = dict(budgets={1: 3000, 2: 1000}, n=8, lam_start=16,
+                 kmax_exp=2)
 
 
 def emit(obj) -> None:
@@ -1505,6 +1568,18 @@ def campaign_kernel_checks(dev, errs):
                           lambda: ref.gen_sample_rng_eval(
                               *r.values(), seeds, lam, sep))
                 check_update(S, lam, n, dtype)
+    # phase 10's S1 call: 8 members of the (1, 2) menu at (12, 1000)
+    S, lam, n = len(MESH["fids"]) * MESH["runs"], LAM_START, MAIN["n"]
+    for dtype in (torch.float64, torch.float32):
+        a, _ = sample_inputs(S, lam, n, dtype, dev, seed=S)
+        members = ladder.campaign_members(MESH["fids"], (1,), MESH["runs"])
+        sep = ops.slot_sep(bbob.separable_coeffs(
+            ladder.campaign_instances(members, n, dtype, dev),
+            MESH["fids"]), 1, dtype)
+        check("cma_gen_sample_eval", S, lam, n, dtype,
+              lambda: kernel_eval(a, sep),
+              lambda: ref.gen_sample_eval(**a, sep=sep))
+        check_update(S, lam, n, dtype)
     S, lam, n = CAMPAIGN_WIDE["members"], MAIN["lam"], MAIN["n"]
     for dtype in (torch.float64, torch.float32):
         a, _ = sample_inputs(S, lam, n, dtype, dev, seed=S)
@@ -1867,6 +1942,324 @@ def phase_campaign_wide(dev):
           "best_minus_fopt": {f: float(e) for (f, _i, _r), e in zip(
               res.members, res.best_f - res.f_opt)}})
     return launches
+
+
+def launched_steps(res):
+    """The steps a bucketed or mesh run launched: every segment's, and
+    with S1's speculative dispatch (``overlap``, records with
+    ``spec_hit``) the dropped speculations too, each the length of the
+    segment before it: one at every boundary whose bucket changed, and
+    one after the last segment."""
+    segs = res.segments
+    steps = sum(sg["gens"] for sg in segs)
+    if segs and "spec_hit" in segs[0]:
+        steps += segs[-1]["gens"] + sum(
+            prev["gens"] for prev, sg in zip(segs, segs[1:])
+            if not sg["spec_hit"])
+    return steps
+
+
+@contextlib.contextmanager
+def host_threads(device, n=1):
+    """Where ``device`` is the CPU, torch's intra-op threads cut to ``n``
+    for the block: the n = 8 ops of the card-vs-CPU runs are too small to
+    split, and more threads only add barriers."""
+    if torch.device(device).type != "cpu":
+        yield
+        return
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def mesh_run(dev, name, strategy, fids, instances, runs, n, budget, islands,
+             impl="auto", mesh_dev=None, lam_start=LAM_START, kmax_exp=KMAX,
+             overlap=True):
+    """One ``run_campaign_mesh`` on ``islands`` islands of ``mesh_dev``
+    (the card by default), with its wall seconds, launches and peak
+    allocated memory; on the card each kernel tier's launches are checked:
+    S1 one sample and one update launch a step for all members, S2 one of
+    each an island a step (``segments`` holds every island's), counting
+    S1's dropped speculative segments (``launched_steps``)."""
+    where = mesh_dev or dev
+    eng = mesh_engine.MeshCampaignEngine(
+        n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=budget,
+        impl=impl, strategy=strategy, overlap=overlap,
+        mesh=make_campaign_mesh(islands, device=where))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    with host_threads(where):
+        res = mesh_engine.run_campaign_mesh(eng, fids, instances, runs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cma_gen.LAUNCHES)
+    steps = launched_steps(res)
+    if torch.device(where).type == "cuda" and impl in ops.KERNEL_TIERS:
+        menu_sep = all(f in bbob.FUSABLE_FIDS for f in fids)
+        kernel = {("auto", False): "cma_gen_sample",
+                  ("auto", True): "cma_gen_sample_eval",
+                  ("kernel_rng", False): "cma_gen_sample_rng",
+                  ("kernel_rng", True): "cma_gen_sample_rng_eval"}[
+                      (impl, menu_sep)]
+        check_campaign_launches(f"{name} {strategy}", launches, steps,
+                                kernel)
+    elif any(launches.values()):
+        raise AssertionError(f"{name} {strategy} {impl} on {where}: "
+                             f"launches {launches}")
+    if res.compiles > kmax_exp + 1:
+        raise AssertionError(f"{name} {strategy}: {res.compiles} programs")
+    return res, {"strategy": strategy, "islands": islands, "impl": impl,
+                 "wall_s": wall, "steps": steps,
+                 "segments": len(res.segments),
+                 "exchange_rounds": len(res.exchange), "pulls": res.pulls,
+                 "compiles": res.compiles,
+                 "useful_evals": res.useful_evals,
+                 "padded_evals": res.padded_evals,
+                 "padding_waste": res.padding_waste(),
+                 "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "launches": launches}
+
+
+def same_campaign(name, got, want, tol=1e-9):
+    """Two campaign results: the evaluations and every int leaf of the
+    trace exactly, the best values element by element to ``tol``
+    (``f_err``); returns the worst float error."""
+    for f in ("ran", "k_idx", "gen", "fevals", "stop_reason", "stopped",
+              "total_fevals"):
+        if not np.array_equal(getattr(got.trace, f), getattr(want.trace, f)):
+            raise AssertionError(f"{name}: trace {f} differs")
+    if not np.array_equal(got.total_fevals, want.total_fevals):
+        raise AssertionError(f"{name}: evaluations {got.total_fevals} "
+                             f"against {want.total_fevals}")
+    worst = 0.0
+    for b in range(len(want.members)):
+        for x, y in ((got.best_f[b], want.best_f[b]),
+                     (got.trace.best_f[b], want.trace.best_f[b]),
+                     (got.trace.global_best[b], want.trace.global_best[b])):
+            worst = max(worst, f_err(x, y, want.f_opt[b])[0])
+    if not worst <= tol:
+        raise AssertionError(f"{name}: best values off by {worst:.3e}")
+    return worst
+
+
+def phase_mesh_n1000(dev):
+    """Phase 10: S1 (with and without the speculative segment), S2 and
+    ``run_campaign_bucketed`` on the same 8 members at n = 1000 (``MESH``),
+    on 8 islands of the card: equal ints, best values within 1e-9; ms a
+    generation (S2's also an island's), peak memory.  Returns the
+    launches of S1, S2 and the bucketed run."""
+    n, budget = MAIN["n"], MESH["budget"]
+    args = (MESH["fids"], (1,), MESH["runs"], n, budget, MESH["islands"])
+    gens = budget // LAM_START
+    out, res, launches = {}, {}, {}
+    # the bucketed driver first, the reference: the mesh runs that follow
+    # find every kernel, runner and library handle warm
+    eng = bucketed.BucketedLadderEngine(n=n, lam_start=LAM_START,
+                                        kmax_exp=KMAX, max_evals=budget,
+                                        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    res["bucketed"] = bucketed.run_campaign_bucketed(eng, MESH["fids"], (1,),
+                                                     MESH["runs"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["bucketed"] = dict(cma_gen.LAUNCHES)
+    check_campaign_launches("mesh_n1000 bucketed", launches["bucketed"],
+                            launched_steps(res["bucketed"]),
+                            "cma_gen_sample_eval")
+    out["bucketed"] = {"wall_s": wall,
+                       "peak_allocated_gb":
+                       torch.cuda.max_memory_allocated() / 1e9}
+    for run, strategy, overlap in (("ordered_no_spec", "ordered", False),
+                                   ("ordered", "ordered", True),
+                                   ("concurrent", "concurrent", True)):
+        res[run], out[run] = mesh_run(dev, "mesh_n1000", strategy, *args,
+                                      overlap=overlap)
+        launches[run] = out[run].pop("launches")
+    for run in ("ordered", "ordered_no_spec", "concurrent"):
+        r = res[run]
+        out[run]["best_f_err_vs_bucketed"] = same_campaign(
+            f"mesh_n1000 {run}", r, res["bucketed"])
+        if not (r.trace.ran[..., 0].sum(1) == gens).all():
+            raise AssertionError(f"mesh_n1000 {run}: generations "
+                                 f"{r.trace.ran[..., 0].sum(1)}")
+    for key in out:
+        out[key]["ms_per_gen"] = out[key]["wall_s"] / gens * 1e3
+    # the islands run one after another: an island's generation is the
+    # run's over the islands that ran
+    ran = sum(1 for segs in res["concurrent"].shard_segments if segs)
+    out["concurrent"]["ms_per_island_gen"] = (
+        out["concurrent"]["ms_per_gen"] / ran)
+    emit({"phase": "mesh_n1000", "members": len(res["bucketed"].members),
+          "n": n, "budget_per_member": budget, "gens": gens,
+          "eigen_interval": eng.interval, "runs": out,
+          "fevals": [int(x) for x in res["bucketed"].total_fevals],
+          "best_minus_fopt": [float(x) for x in
+                              res["bucketed"].best_f - res["bucketed"].f_opt]})
+    return launches
+
+
+def phase_mesh_campaign_n40(dev):
+    """Phase 10b: phase 9's 48 members (24 fids × instances 1 and 2) at
+    n = 40 on 8 islands, ``MESH_CAMPAIGN["budget"]`` evaluations a member,
+    under S1 (``overlap=False``) and S2: budgets as phase 9 checks them;
+    wall seconds, segments and exchange rounds, padded and useful
+    evaluations, padding waste, the ECDF per BBOB group, and the padding
+    S2 saves against S1.  Returns per strategy its launches and its
+    widest bucket's λ."""
+    budget, islands = MESH_CAMPAIGN["budget"], MESH_CAMPAIGN["islands"]
+    out, launches, widest = {}, {}, {}
+    for strategy in ("ordered", "concurrent"):
+        res, out[strategy] = mesh_run(
+            dev, "mesh_campaign_n40", strategy, range(1, 25),
+            CAMPAIGN["instances"], 1, CAMPAIGN["n"], budget, islands,
+            overlap=False)
+        launches[strategy] = out[strategy].pop("launches")
+        check_campaign_budget(f"mesh_campaign_n40 {strategy}", res, budget,
+                              LAM_START, KMAX)
+        widest[strategy] = max(LAM_START << sg["bucket"]
+                               for sg in res.segments)
+        err = res.best_f - res.f_opt
+        f1 = np.array([f == 1 for f, _i, _r in res.members])
+        out[strategy].update(
+            ecdf=ecdf(res), f1_best_minus_fopt_max=float(err[f1].max()),
+            fevals_total=int(res.total_fevals.sum()))
+    s1, s2 = out["ordered"]["padded_evals"], out["concurrent"]["padded_evals"]
+    emit({"phase": "mesh_campaign_n40", "members": 48, "n": CAMPAIGN["n"],
+          "islands": islands, "budget_per_member": budget, "runs": out,
+          "padded_s2_over_s1": s2 / s1, "padding_saved_by_s2": 1 - s2 / s1})
+    return launches, widest
+
+
+def phase_mesh_card_vs_cpu(dev):
+    """Phase 10c: both strategies at n = 8 (``MESH_SMALL``) on 4 islands of
+    the card and 4 of the CPU, under ``auto`` and ``kernel_rng``: every int
+    leaf and the evaluations exactly, the best values to 1e-9; then
+    ``run_ipop(backend="mesh")`` under both strategies, card against CPU
+    (``mesh_ipop_card_vs_cpu``); then ``eager`` under S1 and
+    ``eager_unfused`` under S2 on the card (``MESH_PLAIN_BUDGET``
+    evaluations a member) launch no kernel.  Returns the card runs'
+    launches."""
+    c = dict(MESH_SMALL)
+    fids, runs, islands = c.pop("fids"), c.pop("runs"), c.pop("islands")
+    args = (fids, (1,), runs, c["n"], c["max_evals"], islands)
+    kw = dict(lam_start=c["lam_start"], kmax_exp=c["kmax_exp"])
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    out = {}
+    for impl in ("auto", "kernel_rng"):
+        for strategy in ("ordered", "concurrent"):
+            card, o = mesh_run(dev, "mesh_card_vs_cpu", strategy, *args,
+                               impl=impl, **kw)
+            for k, v in o["launches"].items():
+                launches[k] += v
+            cpu, oc = mesh_run(dev, "mesh_card_vs_cpu", strategy, *args,
+                               impl=impl, mesh_dev="cpu", **kw)
+            name = f"10c {strategy} {impl}"
+            out[f"{strategy}_{impl}"] = {
+                "best_f_err": same_campaign(name, card, cpu),
+                "fevals": [int(x) for x in card.total_fevals],
+                "segments": o["segments"], "card_s": o["wall_s"],
+                "cpu_s": oc["wall_s"]}
+    out["run_ipop"], ipop_launches = mesh_ipop_card_vs_cpu(dev)
+    for k, v in ipop_launches.items():
+        launches[k] += v
+    plain = (fids, (1,), runs, c["n"], MESH_PLAIN_BUDGET, islands)
+    for impl, strategy in (("eager", "ordered"),
+                           ("eager_unfused", "concurrent")):
+        _r, o = mesh_run(dev, "mesh_card_vs_cpu", strategy, *plain,
+                         impl=impl, **kw)
+        out[f"{strategy}_{impl}"] = {"launches": sum(
+            o["launches"].values()), "card_s": o["wall_s"]}
+    emit({"phase": "mesh_card_vs_cpu", **MESH_SMALL, "runs": out})
+    return launches
+
+
+
+def mesh_ipop_card_vs_cpu(dev):
+    """``run_ipop(backend="mesh", mesh_strategy=s)`` for both strategies on
+    f1 and f2 (``MESH_IPOP``; one island, on the card and on the CPU): the
+    evaluations and every descent's rung, λ, stop reason, generations and
+    evaluations equal, the descents' bests and the final best within 1e-9
+    (``f_err``), f1 with a restart; on the card one eval-fused sample
+    launch and one update launch a step the engine launched (its segments
+    read from the engine's ``drive``), counted from 0 just before the
+    call.  Returns the per-run records and the card runs' launches."""
+    c = dict(MESH_IPOP)
+    budgets, n = c.pop("budgets"), c.pop("n")
+    drives = []
+    drive = mesh_engine.MeshCampaignEngine.drive
+
+    def recorded(self, *args, **kw):
+        drives.append(drive(self, *args, **kw))
+        return drives[-1]
+    mesh_engine.MeshCampaignEngine.drive = recorded
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    out = {}
+    try:
+        for fid, budget in budgets.items():
+            for strategy in ("ordered", "concurrent"):
+                res = {}
+                for where in (dev, "cpu"):
+                    fn, inst = bbob.make_fitness(fid, n, 1, device=where)
+                    fit = bbob.fusable_fitness(inst, (fid,), fn)
+                    torch.cuda.synchronize()
+                    cma_gen.reset_launches()
+                    t0 = time.perf_counter()
+                    with host_threads(where):
+                        res[where] = ipop.run_ipop(
+                            fit, n, 11, max_evals=budget, backend="mesh",
+                            mesh_strategy=strategy, device=where, **c)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    got = dict(cma_gen.LAUNCHES)
+                    name = f"10c run_ipop f{fid} {strategy} on {where}"
+                    if where == "cpu":
+                        if any(got.values()):
+                            raise AssertionError(f"{name}: launches {got}")
+                        cpu_s = wall
+                        continue
+                    card_s, f_opt = wall, float(inst.f_opt)
+                    steps = launched_steps(types.SimpleNamespace(
+                        segments=drives[-1]["segments"]))
+                    check_campaign_launches(name, got, steps,
+                                            "cma_gen_sample_eval")
+                    for k, v in got.items():
+                        launches[k] += v
+                card, cpu = res[dev], res["cpu"]
+                name = f"10c run_ipop f{fid} {strategy}"
+                if card.total_fevals != cpu.total_fevals:
+                    raise AssertionError(f"{name}: evaluations "
+                                         f"{card.total_fevals} against "
+                                         f"{cpu.total_fevals}")
+                desc = [[(d.k_exp, d.lam, d.stop_reason) for d in r.descents]
+                        for r in (card, cpu)]
+                if desc[0] != desc[1] or len(desc[0]) < (2 if fid == 1
+                                                         else 1):
+                    raise AssertionError(f"{name}: descents {desc}")
+                worst = f_err(card.best_f, cpu.best_f, f_opt)[0]
+                for dc, dp in zip(card.descents, cpu.descents):
+                    if not (np.array_equal(dc.gens, dp.gens)
+                            and np.array_equal(dc.fevals, dp.fevals)):
+                        raise AssertionError(f"{name}: descent records")
+                    worst = max(worst, f_err(dc.best_f, dp.best_f, f_opt)[0])
+                if not worst <= 1e-9:
+                    raise AssertionError(f"{name}: bests off by {worst:.3e}")
+                out[f"f{fid}_{strategy}"] = {
+                    "fevals": int(card.total_fevals),
+                    "descents": [[d.lam, len(d.gens), d.stop_reason]
+                                 for d in card.descents],
+                    "best_f_err": worst, "steps": steps, "card_s": card_s,
+                    "cpu_s": cpu_s}
+    finally:
+        mesh_engine.MeshCampaignEngine.drive = drive
+    return out, launches
 
 
 def phase_hostloop(dev):
@@ -2665,16 +3058,26 @@ LOADED = {"cma_gen_sample_rng": "cma_gen_sample",
           "cma_gen_sample_rng_eval": "cma_gen_sample_eval"}
 
 
+def recorded_kernels(call, windows=3):
+    """The distinct CUDA kernels ``torch.profiler`` records for ``call``:
+    their names over ``windows`` windows of 20 calls each, joined (the
+    profiler drops launches, more of them late in the script: one window
+    of an H100 run recorded none of a call's 20)."""
+    names = set()
+    for _ in range(windows):
+        names |= set(profile_update.profile_call(call, 20)["kernels_us"])
+    return len(names)
+
+
 def kernels_a_call(work):
     """Per bucketed path, the CUDA kernels one call of rows 1-4 launches at
-    the path's shape (the distinct kernels ``torch.profiler`` records over
-    20 calls): an RNG call as many as its Z-operand call where it draws Z
-    in the kernel, one more (row 5's) elsewhere."""
+    the path's shape (``recorded_kernels``): an RNG call as many as its
+    Z-operand call where it draws Z in the kernel, one more (row 5's)
+    elsewhere."""
     out = {}
     for p in ("bucketed_rng_f8", "bucketed_rng_f1_restarts"):
-        out[p] = {name: len(profile_update.profile_call(
-            work[p][name][0], 20)["kernels_us"])
-            for name in (*LOADED, *LOADED.values())}
+        out[p] = {name: recorded_kernels(work[p][name][0])
+                  for name in (*LOADED, *LOADED.values())}
         extra = 0 if sample_plan.draws_z(PATHS[p][0]["n"]) else 1
         for rng, loaded in LOADED.items():
             if out[p][rng] != out[p][loaded] + extra:
@@ -2767,6 +3170,20 @@ def main() -> int:
     launches["campaign_bbob24_n1000"] = timed(
         "9d_campaign_n1000", phase_campaign_wide, dev)
     timed("9e_no_fallback", phase_no_fallback, dev)
+    mesh = timed("10_mesh_n1000", phase_mesh_n1000, dev)
+    launches["mesh_n1000_s1"] = mesh["ordered"]
+    launches["mesh_n1000_s2"] = mesh["concurrent"]
+    launches["mesh_n1000_bucketed"] = mesh["bucketed"]
+    mesh, widest = timed("10b_mesh_campaign_n40", phase_mesh_campaign_n40,
+                         dev)
+    for tag, strategy, S in (("s1", "ordered", 48),
+                             ("s2", "concurrent",
+                              48 // MESH_CAMPAIGN["islands"])):
+        launches[f"mesh_campaign_n40_{tag}"] = mesh[strategy]
+        PATHS[f"mesh_campaign_n40_{tag}"] = (
+            dict(RESTARTS, S=S, lam=widest[strategy]), None)
+    launches["mesh_card_vs_cpu"] = timed("10c_mesh_card_vs_cpu",
+                                         phase_mesh_card_vs_cpu, dev)
     launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
                                             dev)
     launches["strategies_small_card_vs_cpu"] = timed(

@@ -256,15 +256,19 @@ def next_bucket(engine: BucketedLadderEngine, k_idx: np.ndarray,
 
 
 def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
-                   dispatch: Callable, time_axis: int = 0):
+                   dispatch: Callable, time_axis: int = 0,
+                   pull: Optional[Callable] = None,
+                   max_segments: int = MAX_SEGMENTS):
     """The host re-bucketing loop.  ``dispatch(k, seg_gens, carry) ->
     (carry, trace)`` runs one segment of bucket ``k``.  Between segments
-    only ``pull_schedule`` reads the device; segment traces stay on the
-    device until they are concatenated along ``time_axis`` at the end (0
-    for one problem's (T, S) leaves, 1 for a campaign's (B, T, S)).
-    Returns ``(carry, trace, log)``: ``log["segments"]`` holds one record
-    per segment and ``log["pulls"]`` counts the schedule reads (segments +
-    1).
+    only ``pull`` reads the device (``pull_schedule`` unless given; the
+    mesh engine passes its per-device gather, which takes ``wait`` too);
+    segment traces stay on the device until they are concatenated along
+    ``time_axis`` at the end (0 for one problem's (T, S) leaves, 1 for a
+    campaign's (B, T, S)).  Returns ``(carry, trace, log)``:
+    ``log["segments"]`` holds one record per segment and ``log["pulls"]``
+    counts the schedule reads (segments + 1); more than ``max_segments``
+    segments raise.
 
     With ``engine.overlap``, at each boundary after the first the
     schedule's copy is queued, then the next segment of the previous
@@ -276,17 +280,18 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     be running it), ``sync_s`` the wait for the schedule and ``spec_s``
     that of the speculative dispatch."""
     overlap = bool(engine.overlap)
+    pull = pull_schedule if pull is None else pull
     seg_traces: List[ladder.LadderTrace] = []
     segments: List[dict] = []
     pulls = 0
     seg_len: Dict[int, int] = {}        # one segment length per bucket
     k_prev: Optional[int] = None
 
-    for _ in range(MAX_SEGMENTS):
+    for _ in range(max_segments):
         spec = None
         pulls += 1
         if overlap and k_prev is not None:
-            pending = pull_schedule(carry, wait=False)
+            pending = pull(carry, wait=False)
             t0 = time.perf_counter()
             spec = dispatch(k_prev, seg_len[k_prev], carry)
             spec_s = time.perf_counter() - t0
@@ -294,7 +299,7 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             k_idx, active, fevals, best_f = pending()
         else:
             t0 = time.perf_counter()
-            k_idx, active, fevals, best_f = pull_schedule(carry)
+            k_idx, active, fevals, best_f = pull(carry)
         sync_s = time.perf_counter() - t0
         if segments:
             # the pull reflects the previous segment's result
@@ -322,7 +327,7 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
         k_prev = k
     else:
         raise RuntimeError("segment driver did not converge "
-                           f"within {MAX_SEGMENTS} segments")
+                           f"within {max_segments} segments")
 
     log = {"segments": segments, "pulls": pulls}
     if not seg_traces:
@@ -334,11 +339,16 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     return carry, trace, log
 
 
-def _empty_trace(carry: ladder.LadderCarry,
-                 time_axis: int) -> ladder.LadderTrace:
+def _empty_trace(carry, time_axis: int) -> ladder.LadderTrace:
     """A zero-generation LadderTrace with the slot (and member) layout of
-    ``carry``, its time axis at ``time_axis``."""
+    ``carry``, its time axis at ``time_axis``.  ``carry`` may also be a
+    list of a campaign's member slices (the mesh engine's carry, one slice
+    a device), whose member counts add up."""
+    parts = carry if isinstance(carry, list) else [carry]
+    carry = parts[0]
     k = tuple(carry.k_idx.shape)
+    if len(parts) > 1:
+        k = (sum(int(p.k_idx.shape[0]) for p in parts),) + k[1:]
     slot = k[:time_axis] + (0,) + k[time_axis:]
     glob = k[:time_axis] + (0,)
     dev = carry.k_idx.device

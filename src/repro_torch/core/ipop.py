@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import bucketed as bucketed_mod
 from repro_torch.core import ladder as ladder_mod
 from repro_torch.core.params import select_params
+from repro_torch.distributed import mesh_engine
 from repro_torch.kernels import ops
 
 
@@ -148,7 +149,8 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
              kmax_exp: int = 8, max_evals: int = 200_000, domain=(-5.0, 5.0),
              sigma0_frac: float = 0.25, chunk: int = 32, impl: str = "auto",
              dtype: str = "float64", total_gens: int | None = None,
-             backend: str = "ladder", *, device=None) -> IPOPResult:
+             backend: str = "ladder", mesh_strategy: str = "ordered", *,
+             device=None) -> IPOPResult:
     """Paper Alg. 2 with multiplicative factor 2 and K_max = 2^kmax_exp.
 
     The parameters the two packages share keep the JAX package's order.
@@ -157,15 +159,20 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
     (``core/bucketed.py``: work proportional to the live rung, sized by
     the driver, so ``total_gens`` does not apply); ``backend="hostloop"``
     runs ``run_ipop_hostloop`` in chunks of ``chunk`` generations (bounded
-    by the budget and the stops, so ``total_gens`` does not apply either).
-    ``impl`` picks the tier on every backend (``kernels/ops.py``) and is
-    validated first.  ``key`` is an int seed or a (2,) key tensor
-    (``core/prng.py``).  ``device=None`` runs on the CUDA device and
-    raises without one.  The JAX package's ``mesh`` and ``service``
-    backends raise ``NotImplementedError`` naming their ROADMAP.md queue A
-    items."""
+    by the budget and the stops, so ``total_gens`` does not apply either);
+    ``backend="mesh"`` runs the bucketed segments through the mesh
+    campaign engine (``distributed/mesh_engine.py``; one island per CUDA
+    device, or one on ``device``) under the paper's S1
+    (``mesh_strategy="ordered"``) or S2 (``"concurrent"``), which applies
+    to that backend only.  ``impl`` picks the tier on every backend
+    (``kernels/ops.py``) and is validated first.  ``key`` is an int seed
+    or a (2,) key tensor (``core/prng.py``).  ``device=None`` runs on the
+    CUDA device and raises without one.  The JAX package's ``service``
+    backend raises ``NotImplementedError`` naming its ROADMAP.md queue A
+    item."""
     ops.validate_impl(impl)
-    if backend in ("bucketed", "hostloop") and total_gens is not None:
+    if backend in ("bucketed", "hostloop", "mesh") and \
+            total_gens is not None:
         raise ValueError(f"total_gens only applies to backend='ladder', not "
                          f"{backend!r}")
     if backend == "bucketed":
@@ -181,10 +188,17 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             fitness_fn, n, key, lam_start=lam_start, kmax_exp=kmax_exp,
             max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,
             chunk=chunk, impl=impl, dtype=dtype, device=device)
-    if backend in ("mesh", "service"):
+    if backend == "mesh":
+        engine_m = mesh_engine.MeshCampaignEngine(
+            n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
+            domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
+            strategy=mesh_strategy, device=device)
+        carry, trace = mesh_engine.run_mesh_single(engine_m, key, fitness_fn)
+        return _result_from_ladder(engine_m.bucketed.full, carry, trace)
+    if backend == "service":
         raise NotImplementedError(
-            f"backend={backend!r} is not ported; 'ladder', 'bucketed' and "
-            "'hostloop' are (ROADMAP.md, queue A items 9-11)")
+            "backend='service' is not ported; 'ladder', 'bucketed', "
+            "'hostloop' and 'mesh' are (ROADMAP.md, queue A item 11)")
     if backend != "ladder":
         raise ValueError(f"unknown backend {backend!r}")
     engine = ladder_mod.LadderEngine(

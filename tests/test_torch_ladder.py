@@ -96,7 +96,7 @@ def test_run_ipop_signature_matches_jax():
     shared = [p for p in jp if p in tp]
     assert shared == ["fitness_fn", "n", "key", "lam_start", "kmax_exp",
                       "max_evals", "domain", "sigma0_frac", "chunk", "impl",
-                      "dtype", "total_gens", "backend"]
+                      "dtype", "total_gens", "backend", "mesh_strategy"]
     assert list(tp)[:len(shared)] == shared
     for p in shared[3:]:
         if p != "impl":                  # the two packages' tier names
@@ -118,9 +118,9 @@ def test_run_ipop_validates_impl_first(backend):
 
 
 def test_unported_options_raise():
-    """The flat eigen schedule, the plain tiers and the host loop are
-    ported; unknown options raise ValueError and the mesh and service
-    backends name their ROADMAP.md items."""
+    """The flat eigen schedule, the plain tiers, the host loop and the mesh
+    backend are ported; unknown options raise ValueError and the service
+    backend names its ROADMAP.md item."""
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, eigen_schedule="blocked", device="cpu")
     with pytest.raises(ValueError):
@@ -128,6 +128,28 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, restart_mode="half", device="cpu")
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
-    for backend in ("mesh", "service"):
-        with pytest.raises(NotImplementedError, match="items 9-11"):
-            tipop.run_ipop(fn, 3, 0, backend=backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tipop.run_ipop(fn, 3, 0, backend="service", device="cpu")
+    with pytest.raises(ValueError, match="strategy"):
+        tipop.run_ipop(fn, 3, 0, backend="mesh", mesh_strategy="barrier",
+                       device="cpu")
+    with pytest.raises(ValueError, match="total_gens"):
+        tipop.run_ipop(fn, 3, 0, backend="mesh", total_gens=5, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["ordered", "concurrent"])
+def test_run_ipop_mesh_backend_runs(strategy):
+    """``backend="mesh"`` now runs, under both strategies, and gives the
+    bucketed backend's run on f8 (the JAX package's own check,
+    ``tests/test_mesh_engine.py``)."""
+    fn, _ = tb.make_fitness(8, 4, 1, device="cpu")
+    kw = dict(lam_start=8, kmax_exp=2, max_evals=2000, device="cpu")
+    r_b = tipop.run_ipop(fn, 4, 7, backend="bucketed", **kw)
+    r_m = tipop.run_ipop(fn, 4, 7, backend="mesh", mesh_strategy=strategy,
+                         **kw)
+    assert r_m.total_fevals == r_b.total_fevals > 0
+    assert [(d.k_exp, d.lam, d.stop_reason) for d in r_m.descents] == \
+        [(d.k_exp, d.lam, d.stop_reason) for d in r_b.descents]
+    for dm, db in zip(r_m.descents, r_b.descents):
+        np.testing.assert_array_equal(dm.fevals, db.fevals)
+    np.testing.assert_allclose(r_m.best_f, r_b.best_f, rtol=1e-12)

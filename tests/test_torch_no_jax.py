@@ -39,6 +39,10 @@ LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
               "repro_torch.kernels.rwkv6_wkv", "repro_torch.serve.engine",
               "repro_torch.launch.serve", "repro_torch.data.pipeline",
               "repro_torch.fitness.nn_fitness"}
+#: modules of the mesh slice the walk must reach
+MESH_MODULES = {"repro_torch.distributed.mesh_engine",
+                "repro_torch.distributed.sharding",
+                "repro_torch.launch.mesh"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -50,6 +54,7 @@ def test_port_imports_without_jax_or_repro():
     words = out.stdout.split()
     assert int(words[1]) >= 28                  # every module was imported
     assert LM_MODULES <= set(words[2:]), LM_MODULES - set(words[2:])
+    assert MESH_MODULES <= set(words[2:]), MESH_MODULES - set(words[2:])
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch):
