@@ -83,7 +83,8 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    (row 5's kernel, then the Z-operand sample kernel, one call a
    generation); its launches, segments, host pulls (segments + 1), padding
    and ms per generation beside phase 3's;
-3c. the bucketed path at n=8, λ_start=16, 3 000 evaluations on the card
+3c. the bucketed path at n=8, λ_start=16, 1 500 evaluations (cut from
+   3 000 for the script's 1200 s when the service phases came) on the card
    and on the CPU (f8, and f1/f2 through the eval-fused kernels; ``auto``
    and ``kernel_rng``):
    every int leaf of the trace and the final carry exactly, every float
@@ -94,13 +95,16 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    eval-fused sample kernel (n=40, λ_max=3072, 10 000 evaluations: cut
    from 100 000, then from 50 000 in PR 19, for the script's 1200 s;
    ``BUDGET``);
-4b. the same run at 50 000 evaluations (``BUDGET_4B``) through
+4b. the same run at 25 000 evaluations (``BUDGET_4B``; cut from 50 000
+   when the service phases came) through
    ``backend="bucketed", impl="kernel_rng"`` (the eval kernel drawing its
    own Z), which must spend ``FEVALS_4B`` evaluations, then again with the speculative segment driver
    (``overlap=True``), whose result must be bit-identical;
 4c. float32 campaigns: ``run_ipop(dtype="float32")`` on f1 (n=40, 10 000
    evaluations) on the card on both backends under ``auto`` and
-   ``kernel_rng``, and on the CPU once per backend (``F32_CPU``): fevals,
+   ``kernel_rng``, and the bucketed ``kernel_rng`` run on the CPU as well
+   (``F32_CPU``; the ladder's ``auto`` run on the CPU too until the service
+   phases needed the time): fevals,
    descents with their stop reasons and best − f_opt side by side.  Every
    run ends within its last population of the budget, on the rungs
    λ_start·2^k in order, with best − f_opt ≤ 8 float32 ulp of f_opt (the
@@ -116,8 +120,9 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    step;
 9. ``campaign_bbob24_n40``: ``run_campaign_bucketed`` over the 24 fids ×
    instances (1, 2) (48 members, n=40, float64, λ_start=12, kmax_exp=8,
-   ``impl="auto"``), under ``policy="cover"`` with 10 000 evaluations a
-   member and then ``"min"`` with 6 000: every member spends at most its
+   ``impl="auto"``), under ``policy="cover"`` and then ``"min"``, 6 000
+   evaluations a member (``"cover"`` cut from 10 000 for the script's
+   1200 s when the service phases came): every member spends at most its
    budget, and more than the budget less the λ of the rung it ends on
    unless it retired on the last rung; at most 9 programs (``compiles``); exactly one sample
    launch (row 1) and one update launch (row 6) a step, whatever the
@@ -126,8 +131,9 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    and the ECDF per ``bbob.GROUPS`` entry over 51 targets 10²…10⁻⁸; then
    where a step's host time goes (``campaign_step_split``);
 9b. ``campaign_sep_rng_n40``: the (1, 2) menu × instances 1-4 × 2 runs (16
-   members) under ``impl="kernel_rng"``: row 4, drawing Z in the kernel,
-   with mixed per-member coefficients, and row 6; the same checks;
+   members) under ``impl="kernel_rng"``, 10 000 evaluations a member: row
+   4, drawing Z in the kernel, with mixed per-member coefficients, and row
+   6; the same checks;
 9c. card against CPU at n=8: ``run_campaign`` and ``run_campaign_bucketed``
    over the menu (1, 2, 8) × instances (1, 2), λ_start=16, kmax_exp=2,
    1 500 evaluations a member, under ``auto`` and ``kernel_rng``: every int
@@ -158,7 +164,8 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    for all members, S2 one of each an island a step; ms a generation
    (S2's also an island's), peak allocated memory;
 10b. ``mesh_campaign_n40``: phase 9's 48 members (24 fids × instances 1
-   and 2, n = 40) on 8 islands, 3 000 evaluations a member
+   and 2, n = 40) on 8 islands, 2 000 evaluations a member (cut from
+   3 000 when the service phases came)
    (``MESH_CAMPAIGN``), under S1 (without the speculative segment) and
    S2: budgets as phase 9 holds them, launches as phase 10; wall
    seconds, segments and exchange rounds, padded and useful evaluations,
@@ -173,6 +180,40 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    launch a step the engine launched; ``eager`` under S1 and
    ``eager_unfused`` under S2 (100 evaluations a member) launch no kernel
    on the card;
+11. ``service_stream_n40``: the campaign service (``CampaignServer``,
+   the 24-fid menu, λ_start = 12, kmax_exp = 8, 12 rows on one island of
+   the card, segments of at most 16 generations, ``auto``, ``SERVICE``)
+   serving a stream: 24 jobs at n = 40
+   (fid j + 1, budgets 3 000-6 000 and priorities 0-2 from
+   ``default_rng(0)``), 12 of them and f1 and f2 at n = 1000 (600
+   evaluations) before the first boundary, the other 12 one a boundary
+   after it; every job done within its budget, the n = 40 lane through
+   at least two buckets (its jobs restart onto rung 1 and above), one
+   sample (row 1) and one update launch an island step and no other
+   kernel, at most 9 programs a lane and none added by a later job, one
+   schedule pull a lane a boundary; every f1/f2 job equal to the
+   bucketed engine of ``run_ipop(backend="bucketed")`` on its key and
+   budget, run as one campaign a dim-class with per-member budgets
+   (``bucketed_jobs``; ints, bests within 1e-9); wall, ms a boundary,
+   jobs/s, evaluations/s, useful and padded evaluations and peak memory;
+11b. ``service_snapshot_resume``: 6 jobs at n = 40 (fids 1, 2, 8, 10,
+   15, 21; 2 000 evaluations, cut from 3 000) snapshotted at the middle
+   boundary of the uninterrupted run, restored into a new server and
+   drained: bit-identical to the uninterrupted run; the
+   same snapshot restored onto 2 islands of the card: ints equal, bests
+   within 1e-9;
+11c. ``service_card_vs_cpu`` at n = 8 (λ_start = 16): f1, f2, f8 and a
+   custom sphere (1 000 evaluations each; cut from 1 500 for the
+   script's time), two admitted mid-flight, card against CPU (ints equal,
+   bests within 1e-9, the sphere's, whose minimum is 0, on a floor of 1;
+   row 1 and row 6 once an island step, the metrics
+   JSONL schema-valid, the Chrome trace valid, one pull a boundary);
+   ``run_ipop(backend="service")`` against ``backend="bucketed"`` on f1
+   (3 000 evaluations, a restart): the same evaluations and descents, one
+   sample and one update launch a launched step each; the (1, 2) menu
+   alone (800 evaluations a job) on row 2 under ``auto`` (against
+   ``eager``, which launches nothing) and row 4 under ``kernel_rng``
+   (against the CPU);
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -211,16 +252,19 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    largest |value|;
 8. the neural-fitness path: ``run_ipop(make_nn_fitness(qwen2-0.5b at full
    width, SyntheticTokens B=4, S=512), n=26, λ_start=12, kmax_exp=1,
-   max_evals=480, backend="bucketed")``: ms per evaluation, baseline CE
+   max_evals=240, backend="bucketed")`` (cut from 480 when the service
+   phases came): ms per
+   evaluation, baseline CE
    (θ = 0) and best CE, evaluations, 24 flash launches per evaluated row;
    phases 7, 7b and 8 then profile one prefill, eight decode steps and
    four evaluations under ``torch.profiler`` (device busy time and share,
    aten calls, the kernels with the most device time);
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c, 9d, 10, 10b and 10c; the
-   campaign paths at (members, widest bucket, 40) and (24, 3072, 1000),
-   the mesh paths at S1's call (8, 12, 1000) and (48, widest, 40) and S2's
-   island (1, 12, 1000) and (6, widest, 40)) its launches, its
+   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c, 9d, 10, 10b, 10c, 11,
+   11b and 11c; the campaign paths at (members, widest bucket, 40) and
+   (24, 3072, 1000), the mesh paths at S1's call (8, 12, 1000) and (48,
+   widest, 40) and S2's island (1, 12, 1000) and (6, widest, 40), the
+   service at its n = 40 island (12, widest, 40)) its launches, its
    time, the plain version's time, one PyTorch call's time (none for the Z
    stream alone) and the least time the card could take (bound: the largest
    of the bytes over the memory's rate, the FP64 tensor-core operations,
@@ -252,10 +296,12 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -265,9 +311,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import configs, convert  # noqa: E402
+from repro_torch import configs, convert, obs  # noqa: E402
 from repro_torch.core import (bucketed, cmaes, ipop, ladder,  # noqa: E402
-                              strategies)
+                              prng, strategies)
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.distributed import mesh_engine  # noqa: E402
@@ -280,6 +326,8 @@ from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.launch.mesh import make_campaign_mesh  # noqa: E402
 from repro_torch.models import layers, lm  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.service import server as service_server  # noqa: E402
+from repro_torch.service.queue import CampaignRequest  # noqa: E402
 from tools import profile_update  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): FP64 on the tensor cores and
@@ -293,8 +341,10 @@ GENS = 64                                 # phase 3's generations
 #: 50 000 and 3c at 6 000 the script took 1107 s of its 1200 on a slow
 #: host; phase 4's ladder pads every rung to λ_max, so its kernels' shape
 #: does not depend on the budget) and of phase 4b (whose widest bucket
-#: phase 5 times rows 4 and 6 at)
-BUDGET, BUDGET_4B = 10_000, 50_000
+#: phase 5 times rows 4 and 6 at; cut from 50 000 when the service phases
+#: came, so its third descent, λ = 48, is cut short and λ = 96 is not
+#: reached)
+BUDGET, BUDGET_4B = 10_000, 25_000
 MAIN = dict(S=1, lam=LAM_START << KMAX, n=1000)   # phase 3, f8
 RESTARTS = dict(S=1, lam=LAM_START << KMAX, n=40)  # phase 4, f1 (eval kernel)
 RAGGED = dict(S=3, lam=37, n=45)
@@ -318,7 +368,8 @@ PATHS = {"main_path_f8": (MAIN, None), "ipop_f1_restarts": (RESTARTS, 1),
          "mesh_n1000_s1": (dict(MAIN, S=8, lam=LAM_START), 1),
          "mesh_n1000_s2": (dict(MAIN, lam=LAM_START), 1),
          "mesh_campaign_n40_s1": (None, None),
-         "mesh_campaign_n40_s2": (None, None)}
+         "mesh_campaign_n40_s2": (None, None),
+         "service_stream_n40": (None, None)}
 _SAMPLE_CU = "src/repro_torch/kernels/csrc/cma_gen_sample.cu"
 SOURCES = {
     "cma_gen_sample": (_SAMPLE_CU, "src/repro/kernels/cma_gen.py:91"),
@@ -369,7 +420,7 @@ CARD_VS_CPU = dict(layers=2, B=2, S=50, steps=8, tol=1e-4)
 DECODE_TOL = {"qwen2-0.5b": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
               "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4}}
 NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
-          max_evals=480)
+          max_evals=240)
 
 #: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
 #: tensor cores) for the float64 sample tiles (rows 1-4, 7) and the gram of
@@ -379,8 +430,9 @@ TENSOR_SASS = {"cma_gen_sample": "DMMA", "cma_sample": "DMMA",
                "flash_attention": "HGMMA"}
 #: phase 4c: float32 campaigns on f1
 F32 = dict(n=40, budget=10_000)
-#: the (backend, impl) runs of phase 4c that the CPU repeats: one a backend
-F32_CPU = (("ladder", "auto"), ("bucketed", "kernel_rng"))
+#: the (backend, impl) runs of phase 4c that the CPU repeats (the ladder's
+#: ("ladder", "auto") too until the service phases needed its 34 s)
+F32_CPU = (("bucketed", "kernel_rng"),)
 
 #: INT32 operations per Z element of the counter stream (threefry.cuh), for
 #: the bound: 20 rounds of an add, a rotate and an xor, five key injections
@@ -395,21 +447,24 @@ LANES_PER_SM, SMS = 64, 132
 RNG_FP64_OPS = {}
 #: phases 4b and 4c: the evaluations their runs spend (the RNG kernels keep
 #: the stream's bits wherever Z is drawn, so the runs keep their
-#: trajectories)
-FEVALS_4B = 49_908
+#: trajectories).  4b at 50 000 spent 49 908 over descents of 627, 452,
+#: 367 and 145 generations at λ = 12, 24, 48, 96; at 25 000 the third
+#: stops at the budget: 12·627 + 24·452 + 48·138
+FEVALS_4B = 24_996
 FEVALS_4C = 9_996
 #: Z elements a thread of row 5's float64 kernel draws in its wide form
 #: (16 bytes of columns of one row, ``cma_gen_sample.cu``)
 RNG_ELEMENTS_PER_THREAD = 2
 #: the campaigns (phases 9-9d): at n = 40, every fid × instances (1, 2)
-#: with 10 000 evaluations a member under "cover" and 6 000 under "min",
-#: whose steps cost more evaluations of padding (still enough for every f1
-#: member to reach f_opt + 1e-8) (9), and the (1, 2) menu × instances
-#: 1-4 × 2 runs (9b, and phase 2's per-member coefficients); card against
+#: with 6 000 evaluations a member under both policies (enough for every
+#: f1 member to reach f_opt + 1e-8; "cover" ran 10 000 until the service
+#: phases needed the time) (9), and the (1, 2) menu × instances
+#: 1-4 × 2 runs at 10 000 (9b, and phase 2's per-member coefficients; the
+#: counter stream's f1 members need more than 6 000); card against
 #: CPU at n = 8 (9c); the λ_max-padded ladder over the 24 fids at n = 1000
 #: for 16 generations, peak allocated memory under 20 GB (9d)
 CAMPAIGN = dict(n=40, instances=(1, 2), budget=10_000,
-                budgets={"cover": 10_000, "min": 6_000})
+                budgets={"cover": 6_000, "min": 6_000})
 CAMPAIGN_SEP = dict(fids=(1, 2), instances=(1, 2, 3, 4), runs=2)
 #: the generations of phase 9's step split (``campaign_step_split``):
 #: each unprofiled window's, and the profiled window's (whose trace of some
@@ -438,15 +493,16 @@ HOSTLOOP = dict(n=40, budget=10_000)
 #: evaluations a member (16 generations on rung 0, so one segment; cut
 #: from 1 728 for the script's 1200 s: at n = 1000 a member climbs no rung
 #: within a budget the script can pay); 10b phase 9's 48 members at n = 40
-#: on 8 islands, 3 000 evaluations a member (phase 9 runs 10 000 and
-#: 6 000), where members climb at different times, so S2 pads less than
-#: S1 (184 320 against 152 064 padded evaluations on the CPU), S1 without
+#: on 8 islands, 2 000 evaluations a member (3 000 until the service
+#: phases came; there S2 padded 17.5 % less than S1, at 2 000 3.5 %),
+#: where members climb at different
+#: times, so S2 pads less than S1, S1 without
 #: the speculative segment (phase 10 times it both ways; the padding counts
 #: accepted segments only); 10c n = 8, fids (1, 2) × 4 runs on 4 islands,
 #: 200 evaluations a member, card against CPU, and each plain tier once
 #: at 100
 MESH = dict(islands=8, fids=(1, 2), runs=4, budget=192)
-MESH_CAMPAIGN = dict(islands=8, budget=3000)
+MESH_CAMPAIGN = dict(islands=8, budget=2000)
 MESH_SMALL = dict(islands=4, fids=(1, 2), runs=4, n=8, lam_start=16,
                   kmax_exp=2, max_evals=200)
 MESH_PLAIN_BUDGET = 100
@@ -455,6 +511,23 @@ MESH_PLAIN_BUDGET = 100
 #: after 2 672), f2's for one descent
 MESH_IPOP = dict(budgets={1: 3000, 2: 1000}, n=8, lam_start=16,
                  kmax_exp=2)
+#: phases 11-11c, the campaign service on one island of the card (12 rows,
+#: the 24-fid menu): 11 24 jobs at n = 40 (budgets 3 000-6 000 from
+#: ``default_rng(0)``) and f1/f2 at n = 1000
+#: (600 evaluations, 50 generations at λ = 12); 11b 6 jobs at n = 40 with
+#: a snapshot at the middle boundary; 11c n = 8 (λ_start = 16 = 2n, as
+#: 3c), card against CPU, 1 000 evaluations a job, the (1, 2)-menu servers
+#: 800.  11 and 11b cut segments at 16 generations (``seg_blocks``; the
+#: default 64 under "cover"): a late job waits at most 16 steps for a
+#: boundary, and an island with one live job stops paying 64-step
+#: segments of padding (1 216 island steps for 110 568 evaluations at 64,
+#: a run on an H100 80GB HBM3 at 700.00 W)
+SERVICE = dict(n=40, wide_n=1000, lam_start=LAM_START, kmax_exp=KMAX,
+               max_budget=6000, rows=12, budgets=(3000, 6000),
+               wide_budget=600, seg_blocks=16)
+SERVICE_SNAPSHOT = dict(fids=(1, 2, 8, 10, 15, 21), budget=2000)
+SERVICE_SMALL = dict(n=8, lam_start=16, kmax_exp=2, budget=1000,
+                     sep_budget=800, ipop_budget=3000)
 
 
 def emit(obj) -> None:
@@ -1269,7 +1342,7 @@ def rel_err(a, b, scale):
 
 
 def compare_small_runs(name, card, cpu, f_opt):
-    """Two ``run_bucketed_single`` results (carry, trace, log): every int
+    """Two ``run_bucketed_single`` results (carry, trace): every int
     leaf of the trace and the carry exactly; every float leaf element by
     element, bound by 1e-9 — the best values (trace and carry) by
     ``f_err``, m relative to max(|m|, 1), σ relative to itself, C relative
@@ -1278,7 +1351,7 @@ def compare_small_runs(name, card, cpu, f_opt):
     (``f_err``) and m against the step scale σ·max D.  best_x is not
     compared: near a converged Rosenbrock optimum a 1e-13 change of f moves
     x along the valley by far more."""
-    (c_a, t_a, _), (c_b, t_b, _) = card, cpu
+    (c_a, t_a), (c_b, t_b) = card, cpu
     c_a = convert.ladder_carry(convert.to_numpy(c_a), "cpu")
     t_a = ladder.LadderTrace(*(v.cpu() for v in t_a))
     ints = [(f, getattr(t_a, f), getattr(t_b, f)) for f in t_a._fields
@@ -1317,25 +1390,27 @@ def phase_small_bucketed(dev):
     covariances have a repeated eigenvalue, whose eigenvectors cuSOLVER and
     LAPACK choose differently, and the two runs then sample different
     populations from the same distribution."""
-    # 3 000 evaluations: cut from 6 000 in PR 19 for the script's 1200 s
-    kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=3000)
+    # 1 500 evaluations: cut from 6 000, then from 3 000, for the script's
+    # 1200 s
+    kw = dict(n=8, lam_start=16, kmax_exp=2, max_evals=1500)
     worst = {}
     for fid in (8, 1, 2):
         for impl in ("auto", "kernel_rng"):
-            runs, fns = {}, {}
+            runs, fns, log = {}, {}, {}
             for d in (dev, "cpu"):
                 fn, inst = bbob.make_fitness(fid, 8, 1, device=d)
                 fns[d] = bbob.fusable_fitness(inst, (fid,), fn) \
                     if fid in bbob.FUSABLE_FIDS else fn
                 eng = bucketed.BucketedLadderEngine(impl=impl, device=d, **kw)
-                runs[d] = bucketed.run_bucketed_single(eng, 3, fns[d])
+                runs[d] = bucketed.run_bucketed_single(
+                    eng, 3, fns[d], log=log if d == dev else None)
             name = f"f{fid}_{impl}"
             errs, drift = compare_small_runs(name, runs[dev], runs["cpu"],
                                              float(inst.f_opt))
             eng_l = ladder.LadderEngine(schedule="sequential", impl=impl,
                                         device=dev, **kw)
             c_l, t_l = eng_l.run(3, fns[dev])
-            c_b, t_b, log = runs[dev]
+            c_b, t_b = runs[dev]
             for f in ("k_idx", "gen", "fevals", "stop_reason", "stopped"):
                 if not torch.equal(getattr(t_b, f)[t_b.ran],
                                    getattr(t_l, f)[t_l.ran]):
@@ -1418,8 +1493,10 @@ def phase_bucketed_restarts(dev):
     eng = bucketed.BucketedLadderEngine(n=n, overlap=True, device=dev, **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    log_o: dict = {}
     res_o = ipop._result_from_ladder(
-        eng.full, *bucketed.run_bucketed_single(eng, 5, fit))
+        eng.full, *bucketed.run_bucketed_single(eng, 5, fit, log=log_o),
+        log_o)
     torch.cuda.synchronize()
     wall_o = time.perf_counter() - t0
     same_result("overlap=True", res_o, res)
@@ -2260,6 +2337,445 @@ def mesh_ipop_card_vs_cpu(dev):
     finally:
         mesh_engine.MeshCampaignEngine.drive = drive
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 11-11c: the campaign service
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def service_steps():
+    """Records every segment runner the campaign service hands out, one a
+    dispatch: (lane key, bucket, length).  The lengths add up to the
+    island steps the service launched."""
+    rec = []
+    runner = service_server._Lane.runner
+
+    def recorded(self, k, seg_gens):
+        rec.append((self.key, int(k), int(seg_gens)))
+        return runner(self, k, seg_gens)
+    service_server._Lane.runner = recorded
+    try:
+        yield rec
+    finally:
+        service_server._Lane.runner = runner
+
+
+@contextlib.contextmanager
+def fresh_obs():
+    """An empty process-wide metrics registry and tracer for the block."""
+    prev_m = obs.set_metrics(obs.MetricsRegistry())
+    prev_t = obs.set_tracer(obs.Tracer())
+    try:
+        yield obs.metrics(), obs.tracer()
+    finally:
+        obs.set_metrics(prev_m)
+        obs.set_tracer(prev_t)
+
+
+def same_ipop(name, got, want, f_opt, tol=1e-9, gate=True):
+    """Two IPOPResults: the evaluations and every descent's rung, λ, stop
+    reason, generations and evaluations equal, the bests within ``tol``
+    (``f_err``).  Raises where ``gate``, else returns whether they
+    agree; returns the worst best error too."""
+    ok = (got.total_fevals == want.total_fevals
+          and [(d.k_exp, d.lam, d.stop_reason) for d in got.descents]
+          == [(d.k_exp, d.lam, d.stop_reason) for d in want.descents]
+          and all(np.array_equal(a.gens, b.gens)
+                  and np.array_equal(a.fevals, b.fevals)
+                  for a, b in zip(got.descents, want.descents)))
+    worst = f_err(got.best_f, want.best_f, f_opt)[0]
+    if ok:
+        for a, b in zip(got.descents, want.descents):
+            worst = max(worst, f_err(a.best_f, b.best_f, f_opt)[0])
+    ok = ok and worst <= tol
+    if gate and not ok:
+        raise AssertionError(f"{name}: {got.total_fevals} against "
+                             f"{want.total_fevals} evaluations, descents "
+                             f"{[(d.lam, len(d.gens)) for d in got.descents]}"
+                             f" against "
+                             f"{[(d.lam, len(d.gens)) for d in want.descents]}"
+                             f", bests off by {worst:.3e}")
+    return ok, worst
+
+
+def service_jobs():
+    """Phase 11's requests: 24 jobs at n = 40 (fid j + 1, instance 1,
+    budgets uniform in ``SERVICE["budgets"]`` and priorities 0-2 from
+    ``default_rng(0)``), then f1 and f2 at n = 1000."""
+    c = SERVICE
+    rng = np.random.default_rng(0)
+    budgets = rng.integers(c["budgets"][0], c["budgets"][1] + 1, 24)
+    prios = rng.integers(0, 3, 24)
+    narrow = [CampaignRequest(dim=c["n"], fid=j + 1, budget=int(budgets[j]),
+                              seed=100 + j, priority=int(prios[j]))
+              for j in range(24)]
+    wide = [CampaignRequest(dim=c["wide_n"], fid=f, budget=c["wide_budget"],
+                            seed=200 + f) for f in (1, 2)]
+    return narrow, wide
+
+
+def bucketed_jobs(dev, reqs, n):
+    """The bucketed engine over ``reqs`` (one dim-class) as one campaign:
+    each member on its job's key, instance and budget (``drive_segments``
+    with per-member budgets), evaluated as a service lane of the 24-fid
+    menu evaluates it (``StackedFitness``, never the eval-fused kernel);
+    returns an IPOPResult a job."""
+    c = SERVICE
+    eng = bucketed.BucketedLadderEngine(
+        n=n, lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+        max_evals=c["max_budget"], device=dev)
+    keys = torch.stack([prng.PRNGKey(r.seed, device=dev) for r in reqs])
+    insts = bbob.stack_instances([
+        bbob.make_instance(r.fid, n, r.instance, eng.full.cfg.tdtype, dev)
+        for r in reqs])
+    fids = tuple(sorted({r.fid for r in reqs}))
+    fit = ops.slot_fitness(bbob.StackedFitness(insts, fids), 1,
+                           eng.full.cfg.tdtype)
+    budgets = np.array([r.budget for r in reqs], np.int64)
+    budgets_t = torch.as_tensor(budgets, device=dev)
+
+    def dispatch(k, g, carry):
+        carry, tr = eng.segment_scan(k, keys, fit, carry, g,
+                                     max_evals=budgets_t)
+        return carry, ladder.member_major(tr)
+    carry, trace, _segs, _walls = bucketed.drive_segments(
+        eng, eng.init_carry(keys), dispatch, budgets=budgets)
+    return [ipop._result_from_ladder(
+        eng.full, mesh_engine.tree_map(lambda a, j=j: a[j], carry),
+        ladder.LadderTrace(*(x[j] for x in trace))) for j in range(len(reqs))]
+
+
+def phase_service_stream(dev):
+    """Phase 11 ``service_stream_n40``: a campaign service (the 24-fid
+    menu, λ_start = 12, kmax_exp = 8, 12 rows an island, one island on the
+    card, ``auto``) serving ``service_jobs``: 12 n = 40 jobs and the two
+    n = 1000 ones before the first boundary, the other 12 one a boundary
+    after it (mid-flight admission, rows reused as jobs retire).  Gates:
+    every job done within its budget; the n = 40 lane through at least
+    two buckets; one sample (row 1) and one update launch an island step
+    and no other kernel; at most 9 programs a lane and none added by a
+    later job; one schedule pull a lane a boundary; every f1/f2 job equal
+    to the bucketed engine on its key and budget (``bucketed_jobs``, one
+    campaign a dim-class; ints exactly, bests within 1e-9).  Prints wall,
+    ms a boundary, jobs/s, evaluations/s and useful and padded
+    evaluations.  Returns the launches and the widest bucket of the
+    n = 40 lane."""
+    c = SERVICE
+    narrow, wide = service_jobs()
+    srv = service_server.CampaignServer(bbob_fids=tuple(range(1, 25)),
+                         lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+                         max_budget=c["max_budget"],
+                         rows_per_island=c["rows"],
+                         seg_blocks=c["seg_blocks"], devices=[dev])
+    with fresh_obs() as (reg, _tr), service_steps() as rec:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cma_gen.reset_launches()
+        t0 = time.perf_counter()
+        tickets = [srv.submit(r) for r in narrow[:12] + wide]
+        for r in narrow[12:]:
+            srv.step()
+            tickets.append(srv.submit(r))
+        srv.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cma_gen.LAUNCHES)
+        pulls = {dict(lk)["lane"]: h.count for (nm, lk), h in
+                 reg._series.items() if nm == "service_boundary_pull_s"}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    boundaries = srv._boundary_n
+    steps = sum(g for _l, _k, g in rec)
+    check_campaign_launches("11 service_stream_n40", launches, steps,
+                            "cma_gen_sample")
+    if set(pulls.values()) != {boundaries} or len(pulls) != 2:
+        raise AssertionError(f"11: pulls {pulls} for {boundaries} "
+                             "boundaries")
+    by_job = {t.job_id: t for t in tickets}
+    for t in tickets:
+        if not t.done or t.fevals > t.request.budget:
+            raise AssertionError(f"11: job {t.job_id} {t.status} spent "
+                                 f"{t.fevals} of {t.request.budget}")
+    compiles = srv.segment_compiles()
+    if compiles > (c["kmax_exp"] + 1) * len(srv.lanes):
+        raise AssertionError(f"11: {compiles} programs for "
+                             f"{len(srv.lanes)} lanes")
+    extra = srv.submit(CampaignRequest(dim=c["n"], fid=1, budget=600,
+                                       seed=300))
+    srv.drain()
+    if not extra.done or srv.segment_compiles() != compiles:
+        raise AssertionError("11: a later job added a program")
+    useful = sum(t.fevals for t in tickets)
+    padded = sum(c["rows"] * g * (c["lam_start"] << k) for _l, k, g in rec)
+    buckets = sorted({k for key, k, _g in rec if key[0] == c["n"]})
+    if len(buckets) < 2:
+        raise AssertionError(f"11: the n = {c['n']} lane ran buckets "
+                             f"{buckets} only: no job climbed a rung")
+    t0 = time.perf_counter()
+    # the gate: every f1/f2 job against the bucketed engine, one campaign
+    # a dim-class
+    worst = 0.0
+    for n in (c["n"], c["wide_n"]):
+        sel = [t for t in tickets
+               if t.request.dim == n and t.request.fid in (1, 2)]
+        refs = bucketed_jobs(dev, [t.request for t in sel], n)
+        for t, want in zip(sel, refs):
+            r = t.request
+            f_opt = float(bbob.make_instance(r.fid, n, r.instance,
+                                             device="cpu").f_opt)
+            worst = max(worst, same_ipop(
+                f"11 job {t.job_id} (f{r.fid}, n={n})", t.result, want,
+                f_opt)[1])
+    gate_s = time.perf_counter() - t0
+    widest = c["lam_start"] << buckets[-1]
+    emit({"phase": "service_stream_n40", **{k: v for k, v in c.items()},
+          "jobs": len(tickets), "wall_s": wall, "boundaries": boundaries,
+          "ms_per_boundary": wall / boundaries * 1e3,
+          "jobs_per_s": len(tickets) / wall,
+          "evals_per_s": useful / wall, "useful_evals": useful,
+          "padded_evals": padded, "padding_waste": padded / useful,
+          "island_steps": steps, "segments": len(rec),
+          "segment_compiles": compiles, "pulls": pulls,
+          "peak_allocated_gb": peak_gb, "n40_buckets": buckets,
+          "f1_f2_best_err": worst, "f1_f2_reference_s": gate_s,
+          "fevals": {j: t.fevals for j, t in by_job.items()},
+          "launches": launches})
+    return launches, widest
+
+
+def phase_service_snapshot(dev):
+    """Phase 11b ``service_snapshot_resume``: 6 jobs at n = 40
+    (``SERVICE_SNAPSHOT``) on one island: uninterrupted, and snapshotted
+    at that run's middle boundary, dropped, restored into a new server and
+    drained: every job's ints and bests bit-identical; the same snapshot
+    restored onto two islands of the card (re-packed): ints equal, bests
+    within 1e-9.  Returns the launches of the three runs."""
+    c = SERVICE
+    reqs = [CampaignRequest(dim=c["n"], fid=f,
+                            budget=SERVICE_SNAPSHOT["budget"], seed=400 + i)
+            for i, f in enumerate(SERVICE_SNAPSHOT["fids"])]
+    kw = dict(bbob_fids=tuple(range(1, 25)), lam_start=c["lam_start"],
+              kmax_exp=c["kmax_exp"], max_budget=c["max_budget"],
+              rows_per_island=c["rows"], seg_blocks=c["seg_blocks"])
+    cma_gen.reset_launches()
+    t0 = time.perf_counter()
+    ref = service_server.CampaignServer(devices=[dev], **kw)
+    want = [ref.submit(r) for r in reqs]
+    ref.drain()
+    out = {"uninterrupted_s": time.perf_counter() - t0,
+           "boundaries": ref._boundary_n}
+    snap_at = max(1, ref._boundary_n // 2)
+    f_opts = [float(bbob.make_instance(r.fid, r.dim, r.instance,
+                                       device="cpu").f_opt) for r in reqs]
+    with tempfile.TemporaryDirectory() as td:
+        srv = service_server.CampaignServer(devices=[dev], snapshot_dir=td,
+                                            **kw)
+        for r in reqs:
+            srv.submit(r)
+        for _ in range(snap_at):
+            srv.step()
+        t0 = time.perf_counter()
+        step = srv.snapshot()
+        out["snapshot_s"] = time.perf_counter() - t0
+        del srv
+        for islands in (1, 2):
+            t0 = time.perf_counter()
+            back = service_server.CampaignServer.restore(
+                td, mesh=make_campaign_mesh(islands, device=dev))
+            out[f"restore_{islands}_s"] = time.perf_counter() - t0
+            back.drain()
+            worst = 0.0
+            for j, w in enumerate(want):
+                got = back.tickets[w.job_id].result
+                if islands == 1:
+                    same = (got.total_fevals == w.result.total_fevals
+                            and got.best_f == w.result.best_f
+                            and all(a.k_exp == b.k_exp
+                                    and a.stop_reason == b.stop_reason
+                                    and all(np.array_equal(x, y) for x, y
+                                            in zip(a[2:5], b[2:5]))
+                                    for a, b in zip(got.descents,
+                                                    w.result.descents)))
+                    if not same:
+                        raise AssertionError(f"11b: job {j} not "
+                                             "bit-identical after restore")
+                else:
+                    worst = max(worst, same_ipop(
+                        f"11b job {j} on 2 islands", got, w.result,
+                        f_opts[j])[1])
+            out[f"drain_{islands}_islands_best_err"] = worst
+    launches = dict(cma_gen.LAUNCHES)
+    emit({"phase": "service_snapshot_resume", **SERVICE_SNAPSHOT,
+          "step": step, **out,
+          "fevals": [t.fevals for t in want], "launches": launches})
+    return launches
+
+
+def phase_service_card_vs_cpu(dev):
+    """Phase 11c ``service_card_vs_cpu`` at n = 8 (λ_start = 16, kmax_exp =
+    2): a server with the (1, 2, 8) menu and a custom sphere serving f1,
+    f2, f8 and the sphere (two before the first boundary, two after), on
+    the card and on the CPU: ints equal, bests within 1e-9, the card one
+    sample (row 1) and one update launch an island step; its metrics JSONL
+    schema-valid line by line, its Chrome trace valid, one
+    ``service_boundary_pull_s`` observation a boundary.  Then
+    ``run_ipop(backend="service")`` against ``backend="bucketed"`` on the
+    card (f1 through ``fusable_fitness``, a restart): the same evaluations
+    and descents, bests within 1e-9, one sample and one update launch a
+    launched step each, the bucketed run's ``bucketed_sync_s`` count its
+    pulls.  Then a server of the (1, 2) menu alone on f1 and f2 under
+    ``auto`` (row 2 only) against ``eager`` on the card (no kernel), and
+    ``kernel_rng`` (row 4 only) against ``kernel_rng`` on the CPU (its own
+    stream): ints equal, bests within 1e-9.  Returns the card runs'
+    launches."""
+    c = SERVICE_SMALL
+    kw = dict(lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+              max_budget=c["budget"] * 2, rows_per_island=4)
+
+    def sphere(X):
+        return torch.sum((X - 1.2) ** 2, dim=-1)
+    reqs = [CampaignRequest(dim=c["n"], fid=1, budget=c["budget"], seed=500),
+            CampaignRequest(dim=c["n"], fid=8, budget=c["budget"], seed=501),
+            CampaignRequest(dim=c["n"], fid=2, budget=c["budget"], seed=502),
+            CampaignRequest(dim=c["n"], fitness="sphere",
+                            budget=c["budget"], seed=503)]
+    f_opt = {f: float(bbob.make_instance(f, c["n"], 1, device="cpu").f_opt)
+             for f in (1, 2, 8)}
+    # ``f_err`` scales an error by the value and never below |f_opt|; the
+    # sphere's minimum is 0, where the two devices' sum orders leave
+    # relative differences of order 1e-9 on values of order 1e-15, so its
+    # floor is 1, its value one unit from the optimum
+    f_opts = [f_opt.get(r.fid, 1.0) for r in reqs]
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    res, out = {}, {}
+    with tempfile.TemporaryDirectory() as td:
+        for where in (dev, "cpu"):
+            reg = service_server.FitnessRegistry()
+            reg.register("sphere", sphere)
+            mpath = os.path.join(td, f"m_{torch.device(where).type}.jsonl")
+            with fresh_obs() as (mreg, tracer), service_steps() as rec, \
+                    host_threads(where):
+                srv = service_server.CampaignServer(
+                    registry=reg, bbob_fids=(1, 2, 8), devices=[where],
+                    metrics_out=mpath, **kw)
+                torch.cuda.synchronize()
+                cma_gen.reset_launches()
+                t0 = time.perf_counter()
+                ts = [srv.submit(r) for r in reqs[:2]]
+                for _ in range(2):
+                    srv.step()
+                ts += [srv.submit(r) for r in reqs[2:]]
+                srv.drain()
+                torch.cuda.synchronize()
+                out[f"{torch.device(where).type}_s"] = \
+                    time.perf_counter() - t0
+                got = dict(cma_gen.LAUNCHES)
+                pulls = sum(h.count for (nm, _lk), h in mreg._series.items()
+                            if nm == "service_boundary_pull_s")
+                chrome = os.path.join(td, "trace.json")
+                tracer.export_chrome(chrome)
+            res[where] = [t.result for t in ts]
+            if pulls != srv._boundary_n:
+                raise AssertionError(f"11c: {pulls} pulls for "
+                                     f"{srv._boundary_n} boundaries")
+            for line in obs.read_jsonl(mpath):
+                for m in line["metrics"]:
+                    spec = obs.SPECS[m["name"]]
+                    if (m["type"] != spec.kind or sorted(m["labels"])
+                            != sorted(spec.labels)):
+                        raise AssertionError(f"11c: metric line {m}")
+            with open(chrome) as fh:
+                bad = obs.validate_chrome(json.load(fh))
+            if bad:
+                raise AssertionError(f"11c: Chrome trace {bad[:3]}")
+            if torch.device(where).type == "cuda":
+                check_campaign_launches("11c mixed menu", got,
+                                        sum(g for *_x, g in rec),
+                                        "cma_gen_sample")
+                for k, v in got.items():
+                    launches[k] += v
+            elif any(got.values()):
+                raise AssertionError(f"11c: launches on the CPU {got}")
+        out["mixed_best_err"] = max(
+            same_ipop(f"11c job {j} card vs CPU", a, b, f_opts[j])[1]
+            for j, (a, b) in enumerate(zip(res[dev], res["cpu"])))
+
+    # run_ipop(backend="service") against backend="bucketed" on the card
+    fn, inst = bbob.make_fitness(1, c["n"], 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    ikw = dict(lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+               max_evals=c["ipop_budget"], device=dev)
+    runs, steps = {}, {}
+    for backend in ("bucketed", "service"):
+        with fresh_obs() as (mreg, _t), service_steps() as rec:
+            torch.cuda.synchronize()
+            cma_gen.reset_launches()
+            runs[backend] = ipop.run_ipop(fit, c["n"], 11, backend=backend,
+                                          **ikw)
+            torch.cuda.synchronize()
+            got = dict(cma_gen.LAUNCHES)
+            syncs = mreg.histogram("bucketed_sync_s").count
+        if backend == "bucketed":
+            steps[backend] = sum(sg["gens"]
+                                 for sg in runs[backend].driver["segments"])
+            if syncs != runs[backend].driver["pulls"]:
+                raise AssertionError(f"11c: {syncs} bucketed_sync_s for "
+                                     f"{runs[backend].driver['pulls']} "
+                                     "pulls")
+            kernel = "cma_gen_sample_eval"
+        else:
+            steps[backend] = sum(g for *_x, g in rec)
+            kernel = "cma_gen_sample"
+        check_campaign_launches(f"11c run_ipop {backend}", got,
+                                steps[backend], kernel)
+        for k, v in got.items():
+            launches[k] += v
+    out["run_ipop"] = {
+        "fevals": runs["service"].total_fevals,
+        "descents": [[d.lam, len(d.gens), d.stop_reason]
+                     for d in runs["service"].descents],
+        "steps": steps, "best_f_err": same_ipop(
+            "11c run_ipop service vs bucketed", runs["service"],
+            runs["bucketed"], float(inst.f_opt))[1]}
+    if len(runs["service"].descents) < 2:
+        raise AssertionError("11c: run_ipop made no restart")
+
+    # the (1, 2) menu alone: the eval-fused kernels, or none.  eager is
+    # auto's plain version on the card; kernel_rng draws another stream,
+    # so its plain version is the same server on the CPU
+    sep = [CampaignRequest(dim=c["n"], fid=f, budget=c["sep_budget"],
+                           seed=600 + f) for f in (1, 2)]
+    plain = {}
+    for impl, where, kernel in (
+            ("eager", dev, None), ("auto", dev, "cma_gen_sample_eval"),
+            ("kernel_rng", "cpu", None),
+            ("kernel_rng", dev, "cma_gen_sample_rng_eval")):
+        with service_steps() as rec, host_threads(where):
+            srv = service_server.CampaignServer(
+                bbob_fids=(1, 2), impl=impl, devices=[where], **kw)
+            torch.cuda.synchronize()
+            cma_gen.reset_launches()
+            ts = [srv.submit(r) for r in sep]
+            srv.drain()
+            torch.cuda.synchronize()
+            got = dict(cma_gen.LAUNCHES)
+        if kernel is None:
+            if any(got.values()):
+                raise AssertionError(f"11c: launches under {impl} on "
+                                     f"{where}: {got}")
+            plain["auto" if impl == "eager" else impl] = [t.result
+                                                          for t in ts]
+            continue
+        check_campaign_launches(f"11c (1, 2) menu {impl}", got,
+                                sum(g for *_x, g in rec), kernel)
+        for k, v in got.items():
+            launches[k] += v
+        out[f"sep_{impl}_best_err"] = max(
+            same_ipop(f"11c (1, 2) menu {impl} against its plain version",
+                      t.result, p, f_opt[f])[1]
+            for t, p, f in zip(ts, plain[impl], (1, 2)))
+    emit({"phase": "service_card_vs_cpu", **c, **out, "launches": launches})
+    return launches
 
 
 def phase_hostloop(dev):
@@ -3184,6 +3700,14 @@ def main() -> int:
             dict(RESTARTS, S=S, lam=widest[strategy]), None)
     launches["mesh_card_vs_cpu"] = timed("10c_mesh_card_vs_cpu",
                                          phase_mesh_card_vs_cpu, dev)
+    launches["service_stream_n40"], widest = timed(
+        "11_service_stream_n40", phase_service_stream, dev)
+    PATHS["service_stream_n40"] = (dict(RESTARTS, S=SERVICE["rows"],
+                                        lam=widest), None)
+    launches["service_snapshot_n40"] = timed(
+        "11b_service_snapshot_resume", phase_service_snapshot, dev)
+    launches["service_card_vs_cpu"] = timed(
+        "11c_service_card_vs_cpu", phase_service_card_vs_cpu, dev)
     launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
                                             dev)
     launches["strategies_small_card_vs_cpu"] = timed(

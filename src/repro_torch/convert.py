@@ -105,3 +105,11 @@ def to_numpy(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return type(tree)(*(to_numpy(leaf) for leaf in tree))
+
+
+#: leaves of a campaign-service snapshot (``service/server.py``) whose
+#: dtype differs between the JAX package's and the port's: last path
+#: component → (JAX dtype, port dtype).  ``checkpoint.store.restore``
+#: casts each to the port's template (uint32 keys widened to int64), so a
+#: JAX snapshot restores into the port's server.
+SNAPSHOT_LEAVES = {"keys": ("uint32", "int64")}

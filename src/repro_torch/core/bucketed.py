@@ -21,10 +21,15 @@ whichever bucket runs it (the row-keyed draw keys each row, the counter
 stream each element).  With ``eigen_interval == 1`` the bucketed run is
 the padded ladder's trajectory, up to the order of floating-point sums.
 
-Waiting (ROADMAP.md): the ``bucketed_*`` observability series and the
-fleet supervisor hooks (queue A item 12); one CUDA graph per bucket
-segment, which ``torch.linalg.eigh``'s host sync inside a segment rules
-out for now.
+The driver emits the ``bucketed_*`` series and the ``pull`` and
+``segment`` spans of ``repro_torch.obs`` from values the boundary's one
+pull already brought to the host.  ``segment_scan(max_evals=...)`` takes
+a (B,) tensor of per-member budgets, which is how the campaign service
+runs jobs of different budgets in one segment (``service/server.py``).
+
+Waiting (ROADMAP.md): the fleet supervisor hooks (queue A item 12), which
+raise; one CUDA graph per bucket segment, which ``torch.linalg.eigh``'s
+host sync inside a segment rules out for now.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import ladder
 from repro_torch.core.params import (bucket_config, default_max_iter,
                                      ladder_params)
@@ -43,6 +49,14 @@ from repro_torch.kernels import ops
 
 #: a guard: the driver raises after this many segments
 MAX_SEGMENTS = 10_000
+
+
+def no_fleet(what: str, value) -> None:
+    """Fleet supervision is not ported: a supervisor or fleet raises."""
+    if value is not None:
+        raise NotImplementedError(
+            f"fleet supervision ({what}) is not ported "
+            "(ROADMAP.md, queue A item 12)")
 
 
 @dataclasses.dataclass
@@ -116,17 +130,20 @@ class BucketedLadderEngine:
 
     def segment_scan(self, k: int, base_key: torch.Tensor,
                      fitness_fn: Callable, carry: ladder.LadderCarry,
-                     seg_gens: int
+                     seg_gens: int, max_evals=None
                      ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace]:
         """``seg_gens`` generations of bucket k from ``carry``; the trace
-        leaves are stacked (seg_gens, ...)."""
+        leaves are stacked (seg_gens, ...).  ``max_evals`` replaces the
+        engine's budget: an int, or a campaign's (B,) int64 tensor of
+        per-member budgets on the carry's device (the service's rows)."""
         cfg_k = self.bucket_cfgs[k]
         sparams_k = self.bucket_sparams[k]
+        budget = self.max_evals if max_evals is None else max_evals
 
         def step_fn(c, eigen):
             return ladder.slots_gen_step(
                 cfg_k, sparams_k, c, base_key, fitness_fn,
-                max_evals=self.max_evals, kmax_exp=self.kmax_exp,
+                max_evals=budget, kmax_exp=self.kmax_exp,
                 schedule="sequential", domain=self.domain, impl=self.impl,
                 eigen=eigen, bucket_cap=k)
 
@@ -256,38 +273,50 @@ def next_bucket(engine: BucketedLadderEngine, k_idx: np.ndarray,
 
 
 def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
-                   dispatch: Callable, time_axis: int = 0,
-                   pull: Optional[Callable] = None,
-                   max_segments: int = MAX_SEGMENTS):
+                   dispatch: Callable, max_segments: int = MAX_SEGMENTS,
+                   time_axis: int = 1, pull: Optional[Callable] = None,
+                   budgets=None, overlap: Optional[bool] = None,
+                   supervisor=None, *, log: Optional[dict] = None):
     """The host re-bucketing loop.  ``dispatch(k, seg_gens, carry) ->
     (carry, trace)`` runs one segment of bucket ``k``.  Between segments
     only ``pull`` reads the device (``pull_schedule`` unless given; the
     mesh engine passes its per-device gather, which takes ``wait`` too);
     segment traces stay on the device until they are concatenated along
-    ``time_axis`` at the end (0 for one problem's (T, S) leaves, 1 for a
-    campaign's (B, T, S)).  Returns ``(carry, trace, log)``:
-    ``log["segments"]`` holds one record per segment and ``log["pulls"]``
-    counts the schedule reads (segments + 1); more than ``max_segments``
-    segments raise.
+    ``time_axis`` at the end (1 for a campaign's (B, T, S) leaves, 0 for
+    one problem's (T, S)).  ``budgets`` (B,) replaces the engine's
+    ``max_evals`` per member in the bucket choice (``next_bucket``).
+    Returns ``(carry, trace, segments, bucket_wall)``: one record per
+    segment, and the host seconds per bucket.  ``log``, a dict, receives
+    ``"segments"`` and ``"pulls"``, the schedule reads (segments + 1);
+    more than ``max_segments`` segments raise.  ``supervisor`` (the JAX
+    package's fleet hook) raises: it is not ported.
 
-    With ``engine.overlap``, at each boundary after the first the
-    schedule's copy is queued, then the next segment of the previous
-    bucket is dispatched speculatively, then the host waits for the copy.
-    If the bucket stays, the speculative output is taken; otherwise it is
-    dropped and never touches the accepted carry, so the trajectory is
-    bit-identical to ``overlap=False``.  A segment record's ``wall_s`` is
-    the host time of dispatching the accepted segment (the card may still
-    be running it), ``sync_s`` the wait for the schedule and ``spec_s``
-    that of the speculative dispatch."""
-    overlap = bool(engine.overlap)
+    With ``overlap`` (default ``engine.overlap``), at each boundary after
+    the first the schedule's copy is queued, then the next segment of the
+    previous bucket is dispatched speculatively, then the host waits for
+    the copy.  If the bucket stays, the speculative output is taken;
+    otherwise it is dropped and never touches the accepted carry, so the
+    trajectory is bit-identical to ``overlap=False``.  A segment record's
+    ``wall_s`` is the host time of dispatching the accepted segment (the
+    card may still be running it), ``sync_s`` the wait for the schedule
+    and ``spec_s`` that of the speculative dispatch.
+
+    The loop emits the ``bucketed_*`` series and the ``pull`` and
+    ``segment`` spans of ``repro_torch.obs`` from the pulled numpy arrays
+    and ``perf_counter`` deltas only: no device read of its own."""
+    no_fleet("supervisor", supervisor)
+    overlap = bool(engine.overlap) if overlap is None else bool(overlap)
     pull = pull_schedule if pull is None else pull
+    reg, tracer = obs.metrics(), obs.tracer()
     seg_traces: List[ladder.LadderTrace] = []
     segments: List[dict] = []
+    bucket_wall: Dict[int, float] = {}
     pulls = 0
     seg_len: Dict[int, int] = {}        # one segment length per bucket
     k_prev: Optional[int] = None
+    fev_prev: Optional[float] = None    # the budget pulled a boundary ago
 
-    for _ in range(max_segments):
+    for b in range(max_segments):
         spec = None
         pulls += 1
         if overlap and k_prev is not None:
@@ -295,19 +324,31 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             t0 = time.perf_counter()
             spec = dispatch(k_prev, seg_len[k_prev], carry)
             spec_s = time.perf_counter() - t0
+            pull_span = tracer.start("pull", island="all", boundary=b)
             t0 = time.perf_counter()
             k_idx, active, fevals, best_f = pending()
         else:
+            pull_span = tracer.start("pull", island="all", boundary=b)
             t0 = time.perf_counter()
             k_idx, active, fevals, best_f = pull(carry)
         sync_s = time.perf_counter() - t0
+        tracer.end(pull_span)
+        reg.histogram("bucketed_sync_s").observe(sync_s)
+        fev_sum = float(np.sum(fevals))
+        if fev_prev is not None:
+            reg.counter("bucketed_useful_evals_total").inc(
+                max(0.0, fev_sum - fev_prev))
+        fev_prev = fev_sum
         if segments:
             # the pull reflects the previous segment's result
             gb = float(best_f.min())
             segments[-1]["global_best"] = gb if np.isfinite(gb) else None
-        _live, k = next_bucket(engine, k_idx, active, fevals, seg_len)
+        _live, k = next_bucket(engine, k_idx, active, fevals, seg_len,
+                               budgets=budgets)
         if k is None:
             break
+        seg_span = tracer.start("segment", island="all", bucket=int(k),
+                                boundary=b)
         hit = spec is not None and k == k_prev
         if hit:
             carry, tr = spec
@@ -316,6 +357,8 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             t0 = time.perf_counter()
             carry, tr = dispatch(k, seg_len[k], carry)
             wall = time.perf_counter() - t0
+        tracer.end(seg_span, spec=("hit" if hit else "miss"
+                                   if spec is not None else "sync"))
         seg_traces.append(tr)
         seg = {"bucket": k, "gens": seg_len[k], "wall_s": round(wall, 5)}
         if overlap:
@@ -323,20 +366,32 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             seg["spec_hit"] = hit
             if spec is not None:
                 seg["spec_s"] = round(spec_s, 5)
+        if spec is not None:
+            reg.counter("bucketed_spec_dispatch_total",
+                        outcome="hit" if hit else "miss").inc()
+        reg.counter("bucketed_segments_total", bucket=k).inc()
+        reg.histogram("bucketed_segment_wall_s", bucket=k).observe(wall)
+        reg.counter("bucketed_padded_evals_total", bucket=k).inc(
+            int(np.size(k_idx)) * seg_len[k] * (2 ** k) * engine.lam_start)
+        reg.counter("bucketed_eigh_blocks_total", bucket=k).inc(
+            seg_len[k] // engine.interval)
         segments.append(seg)
+        bucket_wall[k] = bucket_wall.get(k, 0.0) + wall + (
+            sync_s if overlap else 0.0)
         k_prev = k
     else:
         raise RuntimeError("segment driver did not converge "
                            f"within {max_segments} segments")
 
-    log = {"segments": segments, "pulls": pulls}
+    if log is not None:
+        log.update(segments=segments, pulls=pulls)
     if not seg_traces:
         # nothing could run (a budget below one λ_start generation): the
         # padded engine's empty-progress result, with zero generations
-        return carry, _empty_trace(carry, time_axis), log
+        return carry, _empty_trace(carry, time_axis), segments, bucket_wall
     trace = ladder.LadderTrace(*(torch.cat(leaves, dim=time_axis)
                                  for leaves in zip(*seg_traces)))
-    return carry, trace, log
+    return carry, trace, segments, bucket_wall
 
 
 def _empty_trace(carry, time_axis: int) -> ladder.LadderTrace:
@@ -364,16 +419,18 @@ def _empty_trace(carry, time_axis: int) -> ladder.LadderTrace:
         global_best=z(glob, carry.best_f.dtype))
 
 
-def run_bucketed_single(engine: BucketedLadderEngine, key,
-                        fitness_fn: Callable
-                        ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace,
-                                   dict]:
+def run_bucketed_single(engine: BucketedLadderEngine, base_key,
+                        fitness_fn: Callable,
+                        max_segments: int = MAX_SEGMENTS, supervisor=None,
+                        *, log: Optional[dict] = None
+                        ) -> Tuple[ladder.LadderCarry, ladder.LadderTrace]:
     """One problem through the segment driver, the bucketed backend behind
-    ``ipop.run_ipop``.  ``key`` is an int seed or a (2,) key.  Returns
-    ``(carry, trace, log)``: carry and trace shaped like
-    ``LadderEngine.run``'s (trace leaves (T, 1)), and the driver's log
-    (``drive_segments``)."""
-    base_key = engine.full.base_key(key)
+    ``ipop.run_ipop``.  ``base_key`` is an int seed or a (2,) key.
+    Returns ``(carry, trace)`` shaped like ``LadderEngine.run``'s (trace
+    leaves (T, 1)); ``log`` receives the driver's segment records and
+    pulls (``drive_segments``).  ``supervisor`` raises (not ported)."""
+    no_fleet("supervisor", supervisor)
+    base_key = engine.full.base_key(base_key)
     carry = engine.init_carry(base_key)
     fitness_fn = ops.slot_fitness(fitness_fn, engine.full.n_slots,
                                   engine.full.cfg.tdtype)
@@ -381,12 +438,15 @@ def run_bucketed_single(engine: BucketedLadderEngine, key,
     def dispatch(k, seg_gens, c):
         return engine.segment_scan(k, base_key, fitness_fn, c, seg_gens)
 
-    return drive_segments(engine, carry, dispatch)
+    carry, trace, _segs, _walls = drive_segments(
+        engine, carry, dispatch, max_segments, time_axis=0, log=log)
+    return carry, trace
 
 
 def run_campaign_bucketed(engine: BucketedLadderEngine, fids,
-                          instances=(1,), runs: int = 1,
-                          seed: int = 0) -> BucketedCampaignResult:
+                          instances=(1,), runs: int = 1, seed: int = 0,
+                          max_segments: int = MAX_SEGMENTS
+                          ) -> BucketedCampaignResult:
     """A whole BBOB campaign through the rung-bucketed segment driver: the
     members, instances and keys of ``ladder.run_campaign``, whose
     trajectories it follows (bit for bit in the arithmetic of a generation
@@ -403,18 +463,20 @@ def run_campaign_bucketed(engine: BucketedLadderEngine, fids,
     keys = ladder.member_keys(seed, len(members), engine.device)
     fit = ops.slot_fitness(bbob.campaign_fitness(stacked, branch_fids),
                            full.n_slots, full.cfg.tdtype)
+    fused_menu = getattr(fit, "sep", None) is not None
+    reg = obs.metrics()
 
     def dispatch(k, seg_gens, c):
+        if fused_menu:
+            # whole-menu separable segments ride the eval-fused sample
+            reg.counter("bucketed_eval_fused_generations_total").inc(
+                int(seg_gens))
         return engine.segment_runner(k, branch_fids, seg_gens)(keys, fit, c)
 
-    carry, trace, log = drive_segments(engine, engine.init_carry(keys),
-                                       dispatch, time_axis=1)
+    log: dict = {}
+    carry, trace, segments, bucket_wall = drive_segments(
+        engine, engine.init_carry(keys), dispatch, max_segments, log=log)
     trace = ladder.host_trace(trace)
-    segments = log["segments"]
-    bucket_wall: Dict[int, float] = {}
-    for sg in segments:
-        bucket_wall[sg["bucket"]] = (bucket_wall.get(sg["bucket"], 0.0)
-                                     + sg["wall_s"] + sg.get("sync_s", 0.0))
     B = len(members)
     useful = _useful_evals_per_rung(trace, engine.lam_start, engine.kmax_exp)
     padded = sum(B * sg["gens"] * (2 ** sg["bucket"]) * engine.lam_start

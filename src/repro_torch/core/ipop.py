@@ -149,8 +149,8 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
              kmax_exp: int = 8, max_evals: int = 200_000, domain=(-5.0, 5.0),
              sigma0_frac: float = 0.25, chunk: int = 32, impl: str = "auto",
              dtype: str = "float64", total_gens: int | None = None,
-             backend: str = "ladder", mesh_strategy: str = "ordered", *,
-             device=None) -> IPOPResult:
+             backend: str = "ladder", mesh_strategy: str = "ordered",
+             fleet=None, *, device=None) -> IPOPResult:
     """Paper Alg. 2 with multiplicative factor 2 and K_max = 2^kmax_exp.
 
     The parameters the two packages share keep the JAX package's order.
@@ -164,14 +164,24 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
     campaign engine (``distributed/mesh_engine.py``; one island per CUDA
     device, or one on ``device``) under the paper's S1
     (``mesh_strategy="ordered"``) or S2 (``"concurrent"``), which applies
-    to that backend only.  ``impl`` picks the tier on every backend
+    to that backend only.  ``backend="service"`` submits the problem as
+    one job to a one-row campaign service (``service/server.py``) and
+    drains it; the service takes ``fitness_fn`` as a callable branch, so a
+    ``FusableEval`` loses its eval fusion there (the sample kernel without
+    the fitness epilogue, then the callable), where ``backend="bucketed"``
+    samples through the eval-fused kernel.  ``impl`` picks the tier on every backend
     (``kernels/ops.py``) and is validated first.  ``key`` is an int seed
     or a (2,) key tensor (``core/prng.py``).  ``device=None`` runs on the
-    CUDA device and raises without one.  The JAX package's ``service``
-    backend raises ``NotImplementedError`` naming its ROADMAP.md queue A
-    item."""
+    CUDA device and raises without one.  ``fleet`` (the JAX package's
+    fleet supervision) applies to the segment-driven backends and is not
+    ported: any value but None raises ``NotImplementedError`` naming its
+    ROADMAP.md queue A item."""
     ops.validate_impl(impl)
-    if backend in ("bucketed", "hostloop", "mesh") and \
+    if fleet is not None and backend not in ("bucketed", "mesh", "service"):
+        raise ValueError("fleet supervision applies to backend='bucketed', "
+                         f"'mesh' or 'service', not {backend!r}")
+    bucketed_mod.no_fleet("fleet", fleet)
+    if backend in ("bucketed", "hostloop", "mesh", "service") and \
             total_gens is not None:
         raise ValueError(f"total_gens only applies to backend='ladder', not "
                          f"{backend!r}")
@@ -180,8 +190,9 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
             domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
             device=device)
-        carry, trace, log = bucketed_mod.run_bucketed_single(
-            engine_b, key, fitness_fn)
+        log: dict = {}
+        carry, trace = bucketed_mod.run_bucketed_single(
+            engine_b, key, fitness_fn, log=log)
         return _result_from_ladder(engine_b.full, carry, trace, log)
     if backend == "hostloop":
         return run_ipop_hostloop(
@@ -196,9 +207,11 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
         carry, trace = mesh_engine.run_mesh_single(engine_m, key, fitness_fn)
         return _result_from_ladder(engine_m.bucketed.full, carry, trace)
     if backend == "service":
-        raise NotImplementedError(
-            "backend='service' is not ported; 'ladder', 'bucketed', "
-            "'hostloop' and 'mesh' are (ROADMAP.md, queue A item 11)")
+        from repro_torch.service.server import run_service_single
+        return run_service_single(
+            fitness_fn, n, key, lam_start=lam_start, kmax_exp=kmax_exp,
+            max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,
+            impl=impl, dtype=dtype, device=device)
     if backend != "ladder":
         raise ValueError(f"unknown backend {backend!r}")
     engine = ladder_mod.LadderEngine(

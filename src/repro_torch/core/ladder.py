@@ -257,7 +257,8 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
     (``cfg``/``sparams`` are then a bucket's, ``core/bucketed.py``): a slot
     on a higher rung is parked (``ran`` False, state frozen) until the
     driver moves it to a wider bucket.  ``None`` means the program spans
-    the whole ladder."""
+    the whole ladder.  ``max_evals`` is an int or, for a campaign, a (B,)
+    tensor of per-member budgets."""
     single = carry.k_idx.dim() == 1
     if single:
         carry, base_key = _lift(carry), base_key[None]
@@ -280,6 +281,8 @@ def slots_gen_step(cfg: CMAConfig, sparams, carry: LadderCarry,
     if bucket_cap is not None:
         runnable = runnable & (carry.k_idx <= bucket_cap)
     reserve = torch.cumsum(torch.where(runnable, lam_k, 0), 1)
+    if isinstance(max_evals, torch.Tensor) and max_evals.dim() == 1:
+        max_evals = max_evals[:, None]          # per-member budgets (B,)
     ran = runnable & (carry.total_fevals[:, None] + reserve <= max_evals)
 
     kds = slot_key(base_key[:, None, :], slot_ids, carry.incarnation)

@@ -37,8 +37,12 @@ row-keyed draw, never on the island or segment that ran them, so at
 there up to the order of floating-point sums), and above it (S2 cuts
 segments per island) they agree in ECDF.
 
-Waiting (ROADMAP.md): the ``obs`` spans and metrics and the fleet
-supervisor hooks (queue A item 12), ``lower_ordered_segment`` (item 15).
+The engine emits the ``mesh_*`` series and the ``compile``,
+``dispatch`` and ``block`` spans of ``repro_torch.obs`` (S1 also the
+bucketed driver's) from host values only.
+
+Waiting (ROADMAP.md): the fleet supervisor hooks (queue A item 12), which
+raise; ``lower_ordered_segment`` (item 15).
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import bucketed, ladder, prng
 from repro_torch.core.eval_dispatch import FusableEval
 from repro_torch.distributed.sharding import (join_members, shard_members,
@@ -62,13 +67,6 @@ def _finite_or_none(x: float):
     """A JSON-safe scalar for the records: None until a best exists."""
     x = float(x)
     return x if np.isfinite(x) else None
-
-
-def _no_supervisor(supervisor):
-    if supervisor is not None:
-        raise NotImplementedError(
-            "fleet supervision of the mesh engine is not ported "
-            "(ROADMAP.md, queue A item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +284,11 @@ class MeshCampaignEngine:
         reused across islands, campaigns and engines."""
         key = island_program_key(self.bucketed, k, seg_gens, branch_fids,
                                  fitness_fn, self.mesh.devices)
-        fn = _ISLAND_CACHE.get(key, lambda: self._seg_fn(k, seg_gens))
+        traces0 = _ISLAND_CACHE.stats["traces"]
+        with obs.tracer().span("compile", key=f"island.k{k}.g{seg_gens}") \
+                as sp:
+            fn = _ISLAND_CACHE.get(key, lambda: self._seg_fn(k, seg_gens))
+            sp.attrs["hit"] = _ISLAND_CACHE.stats["traces"] == traces0
         self._island_keys.add(key)
         return fn
 
@@ -340,7 +342,7 @@ class MeshCampaignEngine:
         segment call per device group and the gathered pull.  The exchange
         scalars fold when a pull reads a segment's carry: each accepted
         segment gives one record, a mispredicted speculative one none."""
-        _no_supervisor(supervisor)
+        bucketed.no_fleet("supervisor", supervisor)
         mesh = self.mesh
         groups = device_groups(mesh)
         keys_g = shard_members(keys, mesh, groups)
@@ -352,11 +354,20 @@ class MeshCampaignEngine:
         local_cache = None if fitness_fn is None else {}
         exchange: List[dict] = []
         inflight: List[tuple] = []      # (carries, bucket) not yet pulled
+        reg = obs.metrics()
 
         def dispatch(k, seg_gens, cs):
             runner = self.ordered_runner(k, seg_gens, branch_fids,
                                          fitness_fn, cache=local_cache)
+            # no island attribute: the driver's island="all" segment span
+            # already covers this wall
+            sp = obs.tracer().start("dispatch", strategy="ordered",
+                                    bucket=int(k))
+            t0 = time.perf_counter()
             res = [runner(kg, fit, c) for kg, fit, c in zip(keys_g, fits, cs)]
+            obs.tracer().end(sp)
+            reg.histogram("mesh_island_dispatch_s", strategy="ordered",
+                          island="all").observe(time.perf_counter() - t0)
             out = [r[0] for r in res]
             trace = res[0][1] if len(res) == 1 else join_members(
                 [r[1] for r in res], mesh, groups)
@@ -370,27 +381,27 @@ class MeshCampaignEngine:
                 arrays = finish()
                 for i, (ref, k) in enumerate(inflight):
                     if ref is cs:
+                        t0 = time.perf_counter()
                         exchange.append({
                             "bucket": k,
                             "global_fevals": int(np.sum(arrays[2])),
                             "global_best": _finite_or_none(
                                 np.min(arrays[3]))})
+                        reg.histogram("mesh_exchange_s", strategy="ordered"
+                                      ).observe(time.perf_counter() - t0)
+                        reg.counter("mesh_exchange_rounds_total",
+                                    strategy="ordered").inc()
                         # what was dispatched before it is never pulled
                         del inflight[:i + 1]
                         break
                 return arrays
             return done() if wait else done
 
-        carries, trace, log = bucketed.drive_segments(
-            self.bucketed, carries, dispatch, time_axis=1, pull=pull,
-            max_segments=max_segments)
+        log: dict = {}
+        carries, trace, segments, bucket_wall = bucketed.drive_segments(
+            self.bucketed, carries, dispatch, max_segments, time_axis=1,
+            pull=pull, overlap=self.overlap, log=log)
         carry = join_members(carries, mesh, groups, device=self.device)
-        segments = log["segments"]
-        bucket_wall: Dict[int, float] = {}
-        for sg in segments:
-            bucket_wall[sg["bucket"]] = (bucket_wall.get(sg["bucket"], 0.0)
-                                         + sg["wall_s"]
-                                         + sg.get("sync_s", 0.0))
         return dict(carry=carry, trace=trace, segments=segments,
                     bucket_wall=bucket_wall, exchange=exchange,
                     shard_segments=None, pulls=log["pulls"])
@@ -401,7 +412,7 @@ class MeshCampaignEngine:
         re-bucketing loop.  The host takes the islands in turn: pulls the
         island's schedule, decides and runs its next segment; then folds
         the islands' budget and best into the shared view."""
-        _no_supervisor(supervisor)
+        bucketed.no_fleet("supervisor", supervisor)
         eng = self.bucketed
         mesh = self.mesh
         keys_s = shard_members(keys, mesh)
@@ -417,14 +428,20 @@ class MeshCampaignEngine:
         bucket_wall: Dict[int, float] = {}
         exchange: List[dict] = []
         pulls = 0
+        reg, tracer = obs.metrics(), obs.tracer()
 
         for rnd in range(max_segments):
             dispatched = retired = finished = 0
             for s, sh in enumerate(shards):
                 if sh["done"]:
                     continue
+                blk = tracer.start("block", island=s, boundary=rnd)
+                t0 = time.perf_counter()
                 k_idx, active, fevals, best_f = bucketed.pull_schedule(
                     sh["carry"])
+                tracer.end(blk)
+                reg.histogram("mesh_island_block_s", island=s).observe(
+                    time.perf_counter() - t0)
                 pulls += 1
                 sh["best"] = float(best_f.min())
                 sh["fevals"] = int(fevals.sum())
@@ -434,18 +451,27 @@ class MeshCampaignEngine:
                     # each other in its turn, retires
                     sh["done"] = True
                     retired += 1
+                    reg.counter("mesh_retirements_total",
+                                reason="target").inc()
                     continue
                 _live, k = bucketed.next_bucket(eng, k_idx, active, fevals,
                                                 seg_len)
                 if k is None:
                     sh["done"] = True
                     finished += 1
+                    reg.counter("mesh_retirements_total",
+                                reason="exhausted").inc()
                     continue
                 runner = self.island_runner(k, seg_len[k], branch_fids,
                                             fitness_fn)
+                dsp = tracer.start("dispatch", island=s, bucket=int(k),
+                                   boundary=rnd)
                 t0 = time.perf_counter()
                 sh["carry"], tr = runner(sh["keys"], sh["fit"], sh["carry"])
                 wall = time.perf_counter() - t0
+                tracer.end(dsp)
+                reg.histogram("mesh_island_dispatch_s",
+                              strategy="concurrent", island=s).observe(wall)
                 sh["traces"].append(tr)
                 sh["segments"].append({"shard": s, "bucket": k,
                                        "gens": seg_len[k],
@@ -454,6 +480,7 @@ class MeshCampaignEngine:
                 dispatched += 1
             # the only cross-island traffic: two scalars
             if dispatched or retired or finished:
+                t0 = time.perf_counter()
                 entry = {"round": rnd,
                          "global_best": _finite_or_none(
                              min(sh["best"] for sh in shards)),
@@ -461,6 +488,10 @@ class MeshCampaignEngine:
                 if retired:
                     entry["stopped_early"] = True
                 exchange.append(entry)
+                reg.histogram("mesh_exchange_s", strategy="concurrent"
+                              ).observe(time.perf_counter() - t0)
+                reg.counter("mesh_exchange_rounds_total",
+                            strategy="concurrent").inc()
             if not dispatched and all(sh["done"] for sh in shards):
                 break
         else:
@@ -542,7 +573,7 @@ def run_campaign_mesh(engine: MeshCampaignEngine, fids, instances=(1,),
     instances and keys of ``run_campaign_bucketed``, the members padded to
     the mesh with inert rows and deployed per ``engine.strategy``; the
     pads are sliced off the result."""
-    _no_supervisor(supervisor)
+    bucketed.no_fleet("supervisor", supervisor)
     eng = engine.bucketed
     members = ladder.campaign_members(tuple(fids), instances, runs)
     stacked = ladder.campaign_instances(members, engine.n,
@@ -583,7 +614,7 @@ def run_mesh_single(engine: MeshCampaignEngine, key, fitness_fn: Callable,
     ``(carry, trace)`` in ``run_bucketed_single``'s one-problem layout
     (trace leaves (T, S)).  S1 runners are cached per call, S2's by the
     closure object, so no call replays another's fitness."""
-    _no_supervisor(supervisor)
+    bucketed.no_fleet("supervisor", supervisor)
     eng = engine.bucketed
     keys = eng.full.base_key(key)[None]
     keys, carry, _insts, _B, _B_pad = engine.pad_batch(

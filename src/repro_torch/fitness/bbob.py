@@ -491,11 +491,15 @@ class StackedFitness:
     (one read of ``inst.fid``), each group's row indices and instance
     leaves (its Gallagher peaks cut back to its own m) stay on the device,
     and a call makes one evaluator call per distinct fid.  Members whose
-    fid lies outside ``branch_fids`` get NaN."""
+    fid lies outside ``branch_fids`` get ``fill`` (NaN).  ``fids``, the
+    members' fids in order where the caller knows them on the host, saves
+    the read of ``inst.fid``."""
 
-    def __init__(self, inst: BBOBInstance, branch_fids: tuple):
-        fids = _host_fids(inst)
+    def __init__(self, inst: BBOBInstance, branch_fids: tuple, fids=None,
+                 fill: float = float("nan")):
+        fids = _host_fids(inst) if fids is None else [int(f) for f in fids]
         dev = inst.x_opt.device
+        self.fill = fill
         self.groups = []
         for f in sorted(set(fids) & set(branch_fids)):
             rows = [j for j, g in enumerate(fids) if g == f]
@@ -515,7 +519,7 @@ class StackedFitness:
         if len(self.groups) == 1 and self.groups[0][1] is None:
             f, _, sub = self.groups[0]
             return evaluate(f, sub, X)
-        F = torch.full(X.shape[:-1], torch.nan, dtype=X.dtype,
+        F = torch.full(X.shape[:-1], self.fill, dtype=X.dtype,
                        device=X.device)
         for f, idx, sub in self.groups:
             F.index_copy_(0, idx, evaluate(f, sub, X.index_select(0, idx)))
@@ -547,16 +551,18 @@ class SepCoeffs(NamedTuple):
     valid: torch.Tensor    # () bool (int32 when laid out per slot)
 
 
-def separable_coeffs(inst: BBOBInstance, branch_fids: tuple) -> SepCoeffs:
+def separable_coeffs(inst: BBOBInstance, branch_fids: tuple,
+                     fids=None) -> SepCoeffs:
     """SepCoeffs of an instance, or of a stacked one member by member, over
     a fusable fid menu.  The table row is picked on the host: the fids are
-    known when the fitness is built, and a fid outside the menu gives
-    ``valid`` False (NaN values), as the dispatched menu does."""
+    known when the fitness is built (``fids``, the members' fids in order,
+    saves reading ``inst.fid``), and a fid outside the menu gives ``valid``
+    False (NaN values), as the dispatched menu does."""
     branch_fids = tuple(branch_fids)
     if not all(f in FUSABLE_FIDS for f in branch_fids):
         raise ValueError(f"menu {branch_fids} has a non-separable fid")
     n, dt, dev = inst.x_opt.shape[-1], inst.x_opt.dtype, inst.x_opt.device
-    fids = _host_fids(inst)
+    fids = _host_fids(inst) if fids is None else [int(f) for f in fids]
     picks = [f if f in branch_fids else branch_fids[0] for f in fids]
     ones, ell = torch.ones(n, dtype=dt, device=dev), _ell_scale(n, dt, dev)
     scale = torch.stack([ones if p == 1 else ell for p in picks])

@@ -188,10 +188,11 @@ def test_run_ipop_matches_jax(fid, backend, impl, jax_like_port):
 def test_overlap_is_bit_identical(impl):
     _, tf, _ = _fitness(8, 4)
     kw = dict(n=4, **KW, impl=impl, device="cpu")
-    c0, t0, log0 = tbucketed.run_bucketed_single(
-        tbucketed.BucketedLadderEngine(**kw), 7, tf)
-    c1, t1, log1 = tbucketed.run_bucketed_single(
-        tbucketed.BucketedLadderEngine(**kw, overlap=True), 7, tf)
+    log0, log1 = {}, {}
+    c0, t0 = tbucketed.run_bucketed_single(
+        tbucketed.BucketedLadderEngine(**kw), 7, tf, log=log0)
+    c1, t1 = tbucketed.run_bucketed_single(
+        tbucketed.BucketedLadderEngine(**kw, overlap=True), 7, tf, log=log1)
     s0, s1 = log0["segments"], log1["segments"]
     for a, b in zip(t0, t1):
         assert torch.equal(a, b)
@@ -216,7 +217,8 @@ def test_budget_below_one_generation_returns_empty_progress():
     assert r_l.descents == r_b.descents == []
     eng = tbucketed.BucketedLadderEngine(n=3, lam_start=8, kmax_exp=1,
                                          max_evals=4, device="cpu")
-    _, trace, log = tbucketed.run_bucketed_single(eng, 0, fn)
+    log = {}
+    _, trace = tbucketed.run_bucketed_single(eng, 0, fn, log=log)
     assert log == {"segments": [], "pulls": 1}
     assert trace.ran.shape == (0, 1)
     with pytest.raises(ValueError):
@@ -235,7 +237,8 @@ def test_pull_schedule_once_per_boundary(overlap, monkeypatch):
     _, tf, _ = _fitness(1, 4)
     eng = tbucketed.BucketedLadderEngine(n=4, **KW, overlap=overlap,
                                          device="cpu")
-    _, trace, log = tbucketed.run_bucketed_single(eng, 7, tf)
+    log = {}
+    _, trace = tbucketed.run_bucketed_single(eng, 7, tf, log=log)
     segments = log["segments"]
     assert len(segments) >= 3
     assert len(calls) == log["pulls"] == len(segments) + 1

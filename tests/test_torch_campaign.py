@@ -200,7 +200,7 @@ def test_member_equals_run_alone(engine, torch_runs):
     else:
         eng = tbucketed.BucketedLadderEngine(**KW, policy=engine,
                                              device="cpu")
-        carry, trace, _ = tbucketed.run_bucketed_single(eng, key, fit)
+        carry, trace = tbucketed.run_bucketed_single(eng, key, fit)
     ran = trace.ran.numpy()[:, 0]
     got = res.trace.ran[j, :, 0]
     for f in ("k_idx", "gen", "fevals", "stop_reason"):

@@ -96,7 +96,8 @@ def test_run_ipop_signature_matches_jax():
     shared = [p for p in jp if p in tp]
     assert shared == ["fitness_fn", "n", "key", "lam_start", "kmax_exp",
                       "max_evals", "domain", "sigma0_frac", "chunk", "impl",
-                      "dtype", "total_gens", "backend", "mesh_strategy"]
+                      "dtype", "total_gens", "backend", "mesh_strategy",
+                      "fleet"]
     assert list(tp)[:len(shared)] == shared
     for p in shared[3:]:
         if p != "impl":                  # the two packages' tier names
@@ -118,9 +119,9 @@ def test_run_ipop_validates_impl_first(backend):
 
 
 def test_unported_options_raise():
-    """The flat eigen schedule, the plain tiers, the host loop and the mesh
-    backend are ported; unknown options raise ValueError and the service
-    backend names its ROADMAP.md item."""
+    """The flat eigen schedule, the plain tiers, the host loop, the mesh
+    and the service backends are ported; unknown options raise ValueError
+    and a fleet names its ROADMAP.md item."""
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, eigen_schedule="blocked", device="cpu")
     with pytest.raises(ValueError):
@@ -128,8 +129,12 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, restart_mode="half", device="cpu")
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tipop.run_ipop(fn, 3, 0, backend="service", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tipop.run_ipop(fn, 3, 0, backend="service", fleet=object(),
+                       device="cpu")
+    with pytest.raises(ValueError, match="total_gens"):
+        tipop.run_ipop(fn, 3, 0, backend="service", total_gens=5,
+                       device="cpu")
     with pytest.raises(ValueError, match="strategy"):
         tipop.run_ipop(fn, 3, 0, backend="mesh", mesh_strategy="barrier",
                        device="cpu")

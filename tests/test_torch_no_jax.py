@@ -43,6 +43,14 @@ LM_MODULES = {"repro_torch.configs.base", "repro_torch.configs.qwen2_0_5b",
 MESH_MODULES = {"repro_torch.distributed.mesh_engine",
                 "repro_torch.distributed.sharding",
                 "repro_torch.launch.mesh"}
+#: modules of the service slice the walk must reach
+SERVICE_MODULES = {"repro_torch.checkpoint.store", "repro_torch.obs",
+                   "repro_torch.obs.schema", "repro_torch.obs.registry",
+                   "repro_torch.obs.trace", "repro_torch.obs.recorder",
+                   "repro_torch.service", "repro_torch.service.queue",
+                   "repro_torch.service.allocator",
+                   "repro_torch.service.server",
+                   "repro_torch.launch.serve_campaigns"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -55,6 +63,8 @@ def test_port_imports_without_jax_or_repro():
     assert int(words[1]) >= 28                  # every module was imported
     assert LM_MODULES <= set(words[2:]), LM_MODULES - set(words[2:])
     assert MESH_MODULES <= set(words[2:]), MESH_MODULES - set(words[2:])
+    assert SERVICE_MODULES <= set(words[2:]), \
+        SERVICE_MODULES - set(words[2:])
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch):
