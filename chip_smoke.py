@@ -2,11 +2,17 @@
 """Run the PyTorch/CUDA port on one GPU and hold its kernels against their
 plain PyTorch versions.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--serial]
 
 Phases, one JSON line each with its seconds; any failed check raises
 (non-zero exit).  The whole script, the kernels' build included, is to
 finish within 1200 s on one H100; the cut depths below are made for that.
+After the build (phase 1) the phases run in five worker processes at
+once on the one card (``GROUPS``: a CMA-ES step is host-bound, so five
+of them share the card's idle time), each group's lines printed when all
+have ended, a failed worker stopping the others; then the kernels line
+(phase 5) runs alone.  ``--serial`` runs the groups one after another in
+one process instead (the phases' seconds then are their own).
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
@@ -214,6 +220,31 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    alone (800 evaluations a job) on row 2 under ``auto`` (against
    ``eager``, which launches nothing) and row 4 under ``kernel_rng``
    (against the CPU);
+12. ``fleet``, fleet supervision (``repro_torch.fleet``), each
+   supervised run against the same run with ``fleet=None`` in this
+   phase, its five parts at once in five workers: 12a
+   ``run_ipop(backend="bucketed")`` on f1 at n = 40, 3 000 evaluations,
+   snapshots every 2 boundaries, island 0 killed at boundary 3, under
+   ``auto`` (row 2) and ``kernel_rng`` (row 4), under ``auto`` also a
+   plan of a 10 ms delay at boundary 1 and a corrupt read at boundary 2
+   (re-pulled, ``fleet_pull_retries_total`` ≥ 1): every result
+   bit-identical; 12b the mesh engine on 2 islands of the card,
+   S2 and S1, 1 000 evaluations in 16-generation segments, island 0
+   killed at round 2: bit-identical; each supervised
+   run launches the fault-free run's sample and update kernels plus one
+   of each a replayed step (the segment records the recovery dropped,
+   ``replayed_steps``), and exactly the plan's kills are graded dead;
+   12c four jobs at n = 40 (f1 and f8 of the menu, a shifted sphere,
+   2 000-2 500 evaluations) on a service of 2 islands of 4 rows, island 1
+   killed at boundary 3 for 2 boundaries (rows reassigned, the island
+   rejoins, the lane repacked), and of 2 rows (rows park until it
+   rejoins), each part with its own fault-free server: every job's
+   evaluations equal to the fault-free server's,
+   bests within 1e-12, equal ``segment_compiles``, one sample (row 1)
+   and one update launch an island step; the line gives each run's wall,
+   replayed steps, recovery wall, lost-work evaluations and snapshot
+   host ms a boundary; a ``fleet`` line gives the phase's span, from
+   the first part's start to the last one's end;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -260,11 +291,16 @@ finish within 1200 s on one H100; the cut depths below are made for that.
    four evaluations under ``torch.profiler`` (device busy time and share,
    aten calls, the kernels with the most device time);
 5. the ``{"kernels": [...]}`` line: per kernel and per path (phases 3, 3b,
-   4, 4b, 4d, 6, 6b, 6c, 7, 7b, 7c, 8, 9, 9b, 9c, 9d, 10, 10b, 10c, 11,
-   11b and 11c; the campaign paths at (members, widest bucket, 40) and
+   4, 4b, 4c (float32, at (1, 3072, 40)), 4d, 6, 6b, 6c, 7, 7b, 7c, 8
+   (row 1 at (1, widest, 26)), 9, 9b, 9c, 9d, 10, 10b, 10c, 11, 11b, 11c
+   and 12; the campaign paths at (members, widest bucket, 40) and
    (24, 3072, 1000), the mesh paths at S1's call (8, 12, 1000) and (48,
    widest, 40) and S2's island (1, 12, 1000) and (6, widest, 40), the
-   service at its n = 40 island (12, widest, 40)) its launches, its
+   service at its n = 40 island (12, widest, 40) and 11c's (4, widest,
+   8), phase 12's bucketed runs (``auto`` and ``kernel_rng``) and S2
+   island at (1, widest, 40), its S1
+   call at (2, widest, 40) and its service island at (4, widest, 40))
+   its launches, its
    time, the plain version's time, one PyTorch call's time (none for the Z
    stream alone) and the least time the card could take (bound: the largest
    of the bytes over the memory's rate, the FP64 tensor-core operations,
@@ -293,6 +329,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import json
@@ -319,6 +356,10 @@ from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
 from repro_torch.distributed import mesh_engine  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
 from repro_torch.fitness.nn_fitness import make_nn_fitness  # noqa: E402
+from repro_torch.fleet import (CORRUPT, DELAY, KILL, FaultEvent,  # noqa: E402
+                               FaultPlan, FleetConfig)
+from repro_torch.fleet.controller import (FleetController,  # noqa: E402
+                                          IslandSupervisor)
 from repro_torch.kernels import (_build, cma_gen, cma_sample,  # noqa: E402
                                  cma_update, flash_attention, ops, ref,
                                  rwkv6_wkv, sample_plan)
@@ -528,6 +569,22 @@ SERVICE = dict(n=40, wide_n=1000, lam_start=LAM_START, kmax_exp=KMAX,
 SERVICE_SNAPSHOT = dict(fids=(1, 2, 8, 10, 15, 21), budget=2000)
 SERVICE_SMALL = dict(n=8, lam_start=16, kmax_exp=2, budget=1000,
                      sep_budget=800, ipop_budget=3000)
+#: phase 12, fleet supervision on the card: f1 at n = 40 with 3 000
+#: evaluations on the bucketed driver (12a: 4 segments of 64 steps; under
+#: ``auto`` a run with a corrupt read and a delay besides the kill's) and
+#: 1 000 on 2 islands of the mesh engine (12b: segments of 16
+#: generations), snapshots every 2 boundaries, island 0 killed at
+#: boundary 3 (12a) and round 2 (12b); 12c a service of 2 islands with 4
+#: rows (2 in its parking run), 16-generation segments, 4 jobs at n = 40,
+#: island 1 killed at boundary 3 for 2 boundaries.  Cut for the script's
+#: 1200 s: at 3 000 evaluations and 64-generation segments in 12b and a
+#: job of 3 000 in 12c the phase took 119.5 s of a 1038 s serial run
+#: (H100 80GB HBM3, 700.00 W)
+FLEET = dict(n=40, budget=3000, mesh_budget=1000, mesh_seg_blocks=16,
+             lam_start=LAM_START, kmax_exp=KMAX, snapshot_every=2, kill=3,
+             mesh_islands=2, mesh_kill=2)
+FLEET_SERVICE = dict(n=40, islands=2, rows=4, small_rows=2, kill=(1, 3, 2),
+                     lam_start=LAM_START, kmax_exp=KMAX, seg_blocks=16)
 
 
 def emit(obj) -> None:
@@ -870,8 +927,7 @@ def bound(flops, nbytes, dtype, draws=0):
 # ---------------------------------------------------------------------------
 
 def phase_build(dev):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    setup()
     libs = _build.build_all()
     ptxas = []
     for name in _build.SOURCES:
@@ -2544,6 +2600,14 @@ def phase_service_stream(dev):
 
 
 def phase_service_snapshot(dev):
+    """Phase 11b (``service_snapshot_runs``): the launches of its three
+    runs and the widest λ they ran."""
+    with service_steps() as rec:
+        launches = service_snapshot_runs(dev)
+    return launches, SERVICE["lam_start"] << max(k for _l, k, _g in rec)
+
+
+def service_snapshot_runs(dev):
     """Phase 11b ``service_snapshot_resume``: 6 jobs at n = 40
     (``SERVICE_SNAPSHOT``) on one island: uninterrupted, and snapshotted
     at that run's middle boundary, dropped, restored into a new server and
@@ -2612,6 +2676,15 @@ def phase_service_snapshot(dev):
 
 
 def phase_service_card_vs_cpu(dev):
+    """Phase 11c (``service_card_vs_cpu``): the card runs' launches and the
+    widest λ the servers ran."""
+    with service_steps() as rec:
+        launches = service_card_vs_cpu(dev)
+    return launches, SERVICE_SMALL["lam_start"] << max(k for _l, k, _g
+                                                       in rec)
+
+
+def service_card_vs_cpu(dev):
     """Phase 11c ``service_card_vs_cpu`` at n = 8 (λ_start = 16, kmax_exp =
     2): a server with the (1, 2, 8) menu and a custom sphere serving f1,
     f2, f8 and the sphere (two before the first boundary, two after), on
@@ -2776,6 +2849,342 @@ def phase_service_card_vs_cpu(dev):
             for t, p, f in zip(ts, plain[impl], (1, 2)))
     emit({"phase": "service_card_vs_cpu", **c, **out, "launches": launches})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: fleet supervision
+# ---------------------------------------------------------------------------
+
+def replayed_steps(records):
+    """The steps a recovery ran again: the generations of the segment
+    records it dropped (those between the snapshot and the death) and,
+    where the driver speculated (S1's records carry ``spec_hit``), each
+    speculation that missed inside that window.  The first boundary after
+    a recovery speculates nothing, as the first boundary of a run."""
+    steps = sum(r["gens"] for r in records)
+    if records and "spec_hit" in records[0]:
+        steps += sum(prev["gens"] for prev, r in zip(records, records[1:])
+                     if not r["spec_hit"])
+    return steps
+
+
+def fleet_counters(reg):
+    """The fleet's counters and histograms of one run's registry: kills,
+    recoveries by mode, pull retries, rebalances, recovery wall and lost
+    work (sums), and the service's snapshot host seconds."""
+    out = {"failures": 0, "recoveries": {}, "pull_retries": 0,
+           "rebalances": {}, "recovery_wall_s": 0.0, "lost_work_evals": 0.0,
+           "service_snapshot_s": [0, 0.0]}
+    for (name, lk), s in reg._series.items():
+        lab = dict(lk)
+        if name == "fleet_failures_total":
+            out["failures"] += int(s.value)
+        elif name == "fleet_recoveries_total":
+            out["recoveries"][lab["mode"]] = int(s.value)
+        elif name == "fleet_pull_retries_total":
+            out["pull_retries"] += int(s.value)
+        elif name == "fleet_rebalances_total":
+            out["rebalances"][lab["trigger"]] = int(s.value)
+        elif name == "fleet_recovery_wall_s":
+            out["recovery_wall_s"] += s.sum
+        elif name == "fleet_lost_work_evals":
+            out["lost_work_evals"] += s.sum
+        elif name == "service_snapshot_s":
+            out["service_snapshot_s"] = [s.count, s.sum]
+    return out
+
+
+@contextlib.contextmanager
+def made_supervisors():
+    """Every engine supervisor ``run_ipop(fleet=...)`` makes in the block
+    (``ipop._fleet_supervisor``), for its snapshot host times."""
+    made = []
+    real = ipop._fleet_supervisor
+
+    def record(fleet):
+        made.append(real(fleet))
+        return made[-1]
+    ipop._fleet_supervisor = record
+    try:
+        yield made
+    finally:
+        ipop._fleet_supervisor = real
+
+
+def fleet_gates(name, got_l, base_l, replay, kernel, counters, kills,
+                retries=False):
+    """A supervised run against its fault-free run: the fault-free run's
+    sample and update launches plus one of each a replayed step, no other
+    kernel; exactly the plan's kills graded dead (the health detector
+    fired on nothing else) and a replayed recovery for each; a corrupt
+    read re-pulled where the plan has one."""
+    want = {k: v + (replay if k in (kernel, "cma_gen_update") else 0)
+            for k, v in base_l.items()}
+    if got_l != want or not got_l[kernel]:
+        raise AssertionError(f"{name}: launches {got_l}, expected {want} "
+                             f"({replay} steps replayed)")
+    if counters["failures"] != kills or \
+            counters["recoveries"].get("replayed", 0) != kills:
+        raise AssertionError(f"{name}: {counters} for {kills} kills")
+    if retries and counters["pull_retries"] < 1:
+        raise AssertionError(f"{name}: the corrupt read was not re-pulled")
+
+
+def timed_run(call):
+    """``call()`` on a fresh registry, counted from 0: ``(result, wall s,
+    launches, registry)``."""
+    with fresh_obs() as (reg, _tr):
+        torch.cuda.synchronize()
+        cma_gen.reset_launches()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return res, wall, dict(cma_gen.LAUNCHES), reg
+
+
+def phase_fleet_bucketed(dev, impl):
+    """Phase 12a under ``impl``: ``run_ipop(backend="bucketed")`` on f1
+    through the eval-fused kernels (``FLEET``), fault-free and with island
+    0 killed at boundary 3 (snapshots every 2 boundaries), under ``auto``
+    (row 2) or ``kernel_rng`` (row 4); under ``auto`` also a plan of a
+    10 ms delay at boundary 1 and a corrupt read at boundary 2, which must
+    be re-pulled.  Each supervised result bit-identical to the fault-free
+    one, launches per ``fleet_gates``.  Returns the records, the launches
+    and the widest λ."""
+    c = FLEET
+    fn, inst = bbob.make_fitness(1, c["n"], 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    kw = dict(lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+              max_evals=c["budget"], backend="bucketed", device=dev)
+    kill = ("supervised", [FaultEvent(KILL, 0, c["kill"])])
+    plans = {"auto": [kill, ("corrupt_delay",
+                             [FaultEvent(DELAY, 0, 1, delay_s=0.01),
+                              FaultEvent(CORRUPT, 0, 2)])],
+             "kernel_rng": [kill]}
+    kernel = {"auto": "cma_gen_sample_eval",
+              "kernel_rng": "cma_gen_sample_rng_eval"}[impl]
+    launches = {k: 0 for k in cma_gen.LAUNCHES}
+    base, base_s, base_l, _r = timed_run(
+        lambda: ipop.run_ipop(fit, c["n"], 7, impl=impl, **kw))
+    steps = sum(sg["gens"] for sg in base.driver["segments"])
+    check_campaign_launches(f"12a {impl} fault-free", base_l, steps,
+                            kernel)
+    widest = max(d.lam for d in base.descents)
+    rec = {"fault_free_s": base_s, "steps": steps,
+           "fevals": base.total_fevals,
+           "descents": [[d.lam, len(d.gens), d.stop_reason]
+                        for d in base.descents]}
+    for k, v in base_l.items():
+        launches[k] += v
+    for tag, events in plans[impl]:
+        cfg = FleetConfig(snapshot_every=c["snapshot_every"],
+                          plan=FaultPlan(events))
+        with made_supervisors() as made:
+            got, got_s, got_l, reg = timed_run(
+                lambda: ipop.run_ipop(fit, c["n"], 7, impl=impl,
+                                      fleet=cfg, **kw))
+        name = f"12a {impl} {tag}"
+        same_result(name, got, base)
+        replay = replayed_steps(got.driver["replayed"])
+        counters = fleet_counters(reg)
+        kills = sum(e.kind == KILL for e in events)
+        fleet_gates(name, got_l, base_l, replay, kernel, counters,
+                    kills, retries=tag == "corrupt_delay")
+        if kills and not replay:
+            raise AssertionError(f"{name}: the kill replayed nothing")
+        snaps = made[0].snapshot_s
+        rec[tag] = {
+            "plan": [[e.kind, e.island, e.boundary]
+                     for e in cfg.plan.events],
+            "wall_s": got_s, "replayed_steps": replay,
+            "pulls": got.driver["pulls"], **counters,
+            "snapshots": len(snaps),
+            "snapshot_host_ms": 1e3 * sum(snaps) / max(len(snaps), 1)}
+        for k, v in got_l.items():
+            launches[k] += v
+    return rec, launches, widest
+
+
+def phase_fleet_mesh(dev):
+    """Phase 12b: the mesh engine on 2 islands of the card
+    (``run_mesh_single``, the engine ``run_ipop(backend="mesh")`` drives,
+    on a 2-island mesh), f1 through the eval-fused kernel at 1 000
+    evaluations in segments of 16 generations, S2 and S1,
+    fault-free and with island 0 killed at round (S1: boundary) 2,
+    snapshots every 2: bit-identical, launches per ``fleet_gates`` (S1's
+    speculative segments counted by ``launched_steps``).  Returns the
+    records, the launches of each strategy and the widest λ."""
+    c = FLEET
+    fn, inst = bbob.make_fitness(1, c["n"], 1, device=dev)
+    fit = bbob.fusable_fitness(inst, (1,), fn)
+    out, launches, widest = {}, {}, 0
+    for strategy in ("concurrent", "ordered"):
+        runs = {}
+        for fleet in (None, FleetConfig(
+                snapshot_every=c["snapshot_every"],
+                plan=FaultPlan([FaultEvent(KILL, 0, c["mesh_kill"])]))):
+            eng = mesh_engine.MeshCampaignEngine(
+                n=c["n"], lam_start=c["lam_start"], kmax_exp=c["kmax_exp"],
+                max_evals=c["mesh_budget"], strategy=strategy,
+                seg_blocks=c["mesh_seg_blocks"],
+                mesh=make_campaign_mesh(c["mesh_islands"], device=dev))
+            drives = []
+            drive = eng.drive
+
+            def recorded(*args, **kw):
+                drives.append(drive(*args, **kw))
+                return drives[-1]
+            eng.drive = recorded
+            sup = None if fleet is None else IslandSupervisor(fleet)
+            (carry, trace), wall, got_l, reg = timed_run(
+                lambda: mesh_engine.run_mesh_single(eng, 7, fit,
+                                                    supervisor=sup))
+            res = ipop._result_from_ladder(
+                eng.bucketed.full, carry, trace,
+                {"segments": drives[-1]["segments"]})
+            runs[fleet is None] = (res, wall, got_l, reg, drives[-1], sup)
+        (base, base_s, base_l, _r, base_d, _s) = runs[True]
+        (got, got_s, got_l, reg, got_d, sup) = runs[False]
+        name = f"12b {strategy}"
+        steps = launched_steps(types.SimpleNamespace(
+            segments=base_d["segments"]))
+        check_campaign_launches(f"{name} fault-free", base_l, steps,
+                                "cma_gen_sample_eval")
+        same_result(name, got, base)
+        replay = replayed_steps(got_d["replayed"])
+        counters = fleet_counters(reg)
+        fleet_gates(name, got_l, base_l, replay, "cma_gen_sample_eval",
+                    counters, 1)
+        if not replay:
+            raise AssertionError(f"{name}: the kill replayed nothing")
+        widest = max(widest, max(d.lam for d in base.descents))
+        out[strategy] = {
+            "fault_free_s": base_s, "wall_s": got_s, "steps": steps,
+            "replayed_steps": replay, "fevals": base.total_fevals,
+            **counters, "snapshots": len(sup.snapshot_s),
+            "snapshot_host_ms": 1e3 * sum(sup.snapshot_s)
+            / max(len(sup.snapshot_s), 1)}
+        launches[strategy] = {k: base_l[k] + got_l[k] for k in base_l}
+    return out, launches, widest
+
+
+def fleet_jobs():
+    """Phase 12c's requests at n = 40: f1 and f8 of the menu and a shifted
+    sphere (a registered callable), budgets 2 000-2 500."""
+    n = FLEET_SERVICE["n"]
+    return [CampaignRequest(dim=n, fid=1, budget=2500, seed=700),
+            CampaignRequest(dim=n, fid=8, budget=2000, seed=701),
+            CampaignRequest(dim=n, fitness="shifted", budget=2000,
+                            seed=702),
+            CampaignRequest(dim=n, fid=1, budget=2000, seed=703)]
+
+
+def shifted_sphere(X):
+    return torch.sum((X - 1.2) ** 2, dim=-1)
+
+
+def phase_fleet_service(dev, kill_run):
+    """Phase 12c's ``kill_run``: ``fleet_jobs`` on a campaign service of 2
+    islands of the card (``FLEET_SERVICE``: the (1, 8) menu and the
+    callable, so row 1), fault-free, then under a ``FleetController``
+    (snapshots every 2 boundaries) with island 1 killed at boundary 3 for
+    2 boundaries: ``"reassign_rejoin"`` with 4 rows an island (its rows
+    reassigned to island 0, the island rejoins and the lane is repacked),
+    ``"park"`` with 2 rows an island (its rows park until it rejoins).
+    Every job's evaluations equal to the fault-free server's and its best
+    within 1e-12; the 4-row servers' ``segment_compiles`` equal; one
+    sample and one update launch an island step; exactly one kill graded
+    dead.  Returns the records, the launches and the widest λ."""
+    c = FLEET_SERVICE
+    f_opts = [float(bbob.make_instance(r.fid, r.dim, r.instance,
+                                       device="cpu").f_opt)
+              if r.fid is not None else 1.0 for r in fleet_jobs()]
+
+    def server(rows, snapshot_dir=None):
+        reg = service_server.FitnessRegistry()
+        reg.register("shifted", shifted_sphere)
+        return service_server.CampaignServer(
+            registry=reg, bbob_fids=(1, 8), lam_start=c["lam_start"],
+            kmax_exp=c["kmax_exp"], max_budget=2500, rows_per_island=rows,
+            seg_blocks=c["seg_blocks"], devices=[dev] * c["islands"],
+            snapshot_dir=snapshot_dir)
+    out, launches, widest = {}, {k: 0 for k in cma_gen.LAUNCHES}, 0
+    ref = None
+    with tempfile.TemporaryDirectory() as td:
+        for tag, rows, fleet in (
+                ("fault_free", c["rows"], None),
+                (kill_run, {"reassign_rejoin": c["rows"],
+                            "park": c["small_rows"]}[kill_run], True)):
+            srv = server(rows, os.path.join(td, tag) if fleet else None)
+            ctl = (None if fleet is None else FleetController(
+                srv, FleetConfig(snapshot_every=2, plan=FaultPlan(
+                    [FaultEvent(KILL, *c["kill"][:2],
+                                down_for=c["kill"][2])]))))
+            with service_steps() as rec:
+                def drain():
+                    ts = [srv.submit(r) for r in fleet_jobs()]
+                    (srv if ctl is None else ctl).drain()
+                    return ts
+                ts, wall, got_l, reg = timed_run(drain)
+            steps = sum(g for *_x, g in rec)
+            name = f"12c {tag}"
+            check_campaign_launches(name, got_l, steps, "cma_gen_sample")
+            for k, v in got_l.items():
+                launches[k] += v
+            widest = max(widest, c["lam_start"] << max(k for _l, k, _g
+                                                       in rec))
+            counters = fleet_counters(reg)
+            rec_out = {"wall_s": wall, "boundaries": srv._boundary_n,
+                       "island_steps": steps,
+                       "segment_compiles": srv.segment_compiles(),
+                       **counters}
+            if ref is None:
+                ref = (ts, srv.segment_compiles())
+                out[tag] = rec_out
+                continue
+            if counters["failures"] != 1 or any(not t.done for t in ts):
+                raise AssertionError(f"{name}: {counters}, statuses "
+                                     f"{[t.status for t in ts]}")
+            worst = max(same_ipop(f"{name} job {j}", t.result, w.result,
+                                  f_opts[j], tol=1e-12)[1]
+                        for j, (t, w) in enumerate(zip(ts, ref[0])))
+            rc = counters["recoveries"]
+            if tag == "reassign_rejoin":
+                if (rc.get("reassigned", 0) < 1 or rc.get("rejoined") != 1
+                        or not counters["rebalances"].get("rejoin")
+                        or srv.segment_compiles() != ref[1]):
+                    raise AssertionError(f"{name}: {counters}, programs "
+                                         f"{srv.segment_compiles()} against "
+                                         f"{ref[1]}")
+            elif rc.get("requeued", 0) < 1 or rc.get("rejoined") != 1:
+                raise AssertionError(f"{name}: no row parked: {counters}")
+            rec_out["best_err"] = worst
+            snaps = counters["service_snapshot_s"]
+            rec_out["snapshot_host_ms"] = 1e3 * snaps[1] / max(snaps[0], 1)
+            out[tag] = rec_out
+    return out, launches, widest
+
+
+def phase_fleet(dev, part):
+    """Phase 12's ``part``: 12a ``bucketed_auto`` or
+    ``bucketed_kernel_rng``, 12b ``mesh``, 12c ``service_reassign_rejoin``
+    or ``service_park``, one line with its records (the five run at once,
+    each first in a worker of its own: ``GROUPS``).  Returns its launches
+    and the widest λ it reached."""
+    fn, arg = {"bucketed_auto": (phase_fleet_bucketed, "auto"),
+               "bucketed_kernel_rng": (phase_fleet_bucketed, "kernel_rng"),
+               "mesh": (phase_fleet_mesh, None),
+               "service_reassign_rejoin": (phase_fleet_service,
+                                           "reassign_rejoin"),
+               "service_park": (phase_fleet_service, "park")}[part]
+    t0 = time.perf_counter()
+    res, launches, widest = fn(dev) if arg is None else fn(dev, arg)
+    emit({"phase": f"fleet_{part}", **FLEET,
+          **({"service_config": FLEET_SERVICE}
+             if part.startswith("service") else {}),
+          "seconds": time.perf_counter() - t0, part: res})
+    return launches, widest
 
 
 def phase_hostloop(dev):
@@ -3383,7 +3792,8 @@ def phase_card_vs_cpu(dev):
 
 def phase_nn_fitness(dev):
     """``run_ipop`` over ``make_nn_fitness`` on qwen2-0.5b at full width
-    (module docstring, phase 8)."""
+    (module docstring, phase 8).  Returns the launches and the widest
+    shape of the sample kernel (row 1)."""
     cfg = launcher.serve_config(NN["arch"])
     data = SyntheticTokens(cfg, seq_len=NN["S"], global_batch=NN["B"], seed=1)
     fitness, space = make_nn_fitness(cfg, lm.init_params(cfg, 3, dev),
@@ -3432,7 +3842,8 @@ def phase_nn_fitness(dev):
           "profile_4_evals": profiled(lambda: fitness(
               torch.zeros((4, space.dim), dtype=torch.float64,
                           device=dev)))})
-    return launches
+    return launches, dict(S=1, lam=max(d.lam for d in res.descents),
+                          n=space.dim)
 
 
 def lm_bound(flops, nbytes, dtype):
@@ -3519,15 +3930,15 @@ def lm_kernel_rows(dev, errs, launches):
     return rows
 
 
-def kernel_work(shape, fid, dev):
-    """Per kernel, float64 at ``shape``: (kernel call, plain call, one
+def kernel_work(shape, fid, dev, dtype=torch.float64):
+    """Per kernel, in ``dtype`` at ``shape``: (kernel call, plain call, one
     PyTorch call of the same product, the GEMM's operations, bytes, Z
     elements drawn from the counter stream)."""
     S, lam, n = shape["S"], shape["lam"], shape["n"]
-    a, sep = sample_inputs(S, lam, n, torch.float64, dev, fid=fid)
-    u = update_inputs(S, lam, n, torch.float64, dev, zero_slot=False)
+    a, sep = sample_inputs(S, lam, n, dtype, dev, fid=fid)
+    u = update_inputs(S, lam, n, dtype, dev, zero_slot=False)
     lam_nz = int((u["w"] != 0).sum())          # weighted rows, all slots
-    esz = 8
+    esz = torch.empty((), dtype=dtype).element_size()
     zd = (a["Z"] * a["D"][:, None, :]).contiguous()
     bt = a["B"].transpose(-1, -2)
     ys = (u["w"].sqrt()[..., None] * u["Y"]).contiguous()
@@ -3609,21 +4020,26 @@ def phase_table(dev, errs, launches):
     shape; the top-level numbers are those at the phase-3 shape, the
     launches those of every path together.  Rows 7 and 8 come from
     ``strategy_kernel_rows``."""
-    work = {p: kernel_work(shape, fid, dev)
-            for p, (shape, fid) in PATHS.items()}
+    work = {p: kernel_work(shape, fid, dev, *dt)
+            for p, (shape, fid, *dt) in PATHS.items()}
     calls = kernels_a_call(work)
     rows, parts = [], {}
     for name in list(SOURCES)[:6]:
         paths = {}
         for p, w in work.items():
             kern, plain, lib, flops, nbytes, draws = w[name]
-            b_ms, b_by = bound(flops, nbytes, torch.float64, draws)
+            dtype = (PATHS[p][2:] or (torch.float64,))[0]
+            # the draw's instruction counts are float64's (phase 1): a
+            # float32 row is bound by its bytes and its GEMM only
+            draws = draws if dtype == torch.float64 else 0
+            b_ms, b_by = bound(flops, nbytes, dtype, draws)
             parts[f"{name} {p}"] = {
-                **bound_parts(flops, nbytes, torch.float64, draws),
+                **bound_parts(flops, nbytes, dtype, draws),
                 **({"issue_floor": issue_floor_ms(draws)}
-                   if name == "cma_sample_z_rng" else {})}
+                   if name == "cma_sample_z_rng" and draws else {})}
             shape = PATHS[p][0]
             paths[p] = {"shape": [shape["S"], shape["lam"], shape["n"]],
+                        "dtype": str(dtype).replace("torch.", ""),
                         "launches": launches[p][name], "ms": time_ms(kern),
                         "plain_ms": time_ms(plain), "bound_ms": b_ms,
                         "bound_by": b_by,
@@ -3647,85 +4063,287 @@ def phase_table(dev, errs, launches):
     emit({"kernels": rows})
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke.py needs a CUDA device")
-    dev = torch.device("cuda")
-    seconds = {}
+# ---------------------------------------------------------------------------
+# the phases in groups: one worker process a group, all at once on the card
+# ---------------------------------------------------------------------------
 
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        seconds[name] = time.perf_counter() - t0
-        return out
+def run_phase(st, name, fn, *args):
+    """Phase ``name``: ``fn(*args)``, its start and end (host clock) into
+    ``st["spans"]``."""
+    t0 = time.time()
+    out = fn(*args)
+    st["spans"][name] = [t0, time.time()]
+    return out
 
-    timed("1_build", phase_build, dev)
-    errs = timed("2_kernels", phase_kernels, dev)
-    launches = {}
-    launches["main_path_f8"], ladder_ms = timed("3_main_path",
-                                                phase_main_path, dev)
-    launches["bucketed_rng_f8"] = timed("3b_bucketed", phase_bucketed_main,
-                                        dev, ladder_ms)
-    timed("3c_small_bucketed", phase_small_bucketed, dev)
-    launches["ipop_f1_restarts"] = timed("4_ipop", phase_ipop, dev)
-    launches["bucketed_rng_f1_restarts"], widest = timed(
-        "4b_bucketed_restarts", phase_bucketed_restarts, dev)
-    PATHS["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
-    launches["float32_f1"] = timed("4c_float32", phase_float32, dev)
-    launches["hostloop_f1"] = timed("4d_hostloop", phase_hostloop, dev)
-    launches["campaign_bbob24_n40"], widest = timed(
-        "9_campaign_n40", phase_campaign_n40, dev)
-    PATHS["campaign_bbob24_n40"] = (dict(RESTARTS, S=24 * 2, lam=widest),
-                                    None)
-    launches["campaign_sep_rng_n40"], widest = timed(
-        "9b_campaign_sep_rng", phase_campaign_sep_rng, dev)
-    PATHS["campaign_sep_rng_n40"] = (
-        dict(RESTARTS, S=CAMPAIGN_SEP_SLOTS, lam=widest), None)
-    launches["campaign_card_vs_cpu"] = timed(
-        "9c_campaign_card_vs_cpu", phase_campaign_card_vs_cpu, dev)
-    launches["campaign_bbob24_n1000"] = timed(
-        "9d_campaign_n1000", phase_campaign_wide, dev)
-    timed("9e_no_fallback", phase_no_fallback, dev)
-    mesh = timed("10_mesh_n1000", phase_mesh_n1000, dev)
-    launches["mesh_n1000_s1"] = mesh["ordered"]
-    launches["mesh_n1000_s2"] = mesh["concurrent"]
-    launches["mesh_n1000_bucketed"] = mesh["bucketed"]
-    mesh, widest = timed("10b_mesh_campaign_n40", phase_mesh_campaign_n40,
-                         dev)
+
+#: per part of phase 12, its paths: (path, key of its launches, S, fid)
+FLEET_PATHS = {
+    "bucketed_auto": [("fleet_bucketed_auto_n40", None, 1, 1)],
+    "bucketed_kernel_rng": [("fleet_bucketed_rng_n40", None, 1, 1)],
+    "mesh": [("fleet_mesh_s2_n40", "concurrent", 1, 1),
+             ("fleet_mesh_s1_n40", "ordered", FLEET["mesh_islands"], 1)],
+    "service_reassign_rejoin": [("fleet_service_reassign_n40", None,
+                                 FLEET_SERVICE["rows"], None)],
+    "service_park": [("fleet_service_park_n40", None,
+                      FLEET_SERVICE["rows"], None)]}
+
+
+def fleet_step(dev, st, part, name):
+    got, lam = run_phase(st, name, phase_fleet, dev, part)
+    for path, key, S, fid in FLEET_PATHS[part]:
+        st["launches"][path] = got if key is None else got[key]
+        st["paths"][path] = (dict(RESTARTS, S=S, lam=lam), fid)
+
+
+def group_engines(dev, st):
+    """12a under ``kernel_rng``, then phases 2-4b and 6b."""
+    L, P = st["launches"], st["paths"]
+    fleet_step(dev, st, "bucketed_kernel_rng", "12a_fleet_bucketed_rng")
+    st["errs"] = run_phase(st, "2_kernels", phase_kernels, dev)
+    L["main_path_f8"], ladder_ms = run_phase(st, "3_main_path",
+                                             phase_main_path, dev)
+    L["bucketed_rng_f8"] = run_phase(st, "3b_bucketed", phase_bucketed_main,
+                                     dev, ladder_ms)
+    run_phase(st, "3c_small_bucketed", phase_small_bucketed, dev)
+    L["ipop_f1_restarts"] = run_phase(st, "4_ipop", phase_ipop, dev)
+    L["bucketed_rng_f1_restarts"], widest = run_phase(
+        st, "4b_bucketed_restarts", phase_bucketed_restarts, dev)
+    P["bucketed_rng_f1_restarts"] = (dict(RESTARTS, lam=widest), 1)
+    L["strategies_small_card_vs_cpu"] = run_phase(
+        st, "6b_small_strategies", phase_small_strategies, dev)
+
+
+def group_campaigns(dev, st):
+    """12a under ``auto``, then phases 9, 6 and 6c."""
+    L, P = st["launches"], st["paths"]
+    fleet_step(dev, st, "bucketed_auto", "12a_fleet_bucketed_auto")
+    L["campaign_bbob24_n40"], widest = run_phase(
+        st, "9_campaign_n40", phase_campaign_n40, dev)
+    P["campaign_bbob24_n40"] = (dict(RESTARTS, S=24 * 2, lam=widest), None)
+    L["strategies_kdist_f8"] = run_phase(st, "6_strategies",
+                                         phase_strategies, dev)
+    L["strategies_krep_n1000"] = run_phase(st, "6c_krep", phase_krep_n1000,
+                                           dev)
+
+
+def group_mesh(dev, st):
+    """12b, then phases 10-10c and 9c-9e."""
+    L, P = st["launches"], st["paths"]
+    fleet_step(dev, st, "mesh", "12b_fleet_mesh")
+    mesh = run_phase(st, "10_mesh_n1000", phase_mesh_n1000, dev)
+    L["mesh_n1000_s1"] = mesh["ordered"]
+    L["mesh_n1000_s2"] = mesh["concurrent"]
+    L["mesh_n1000_bucketed"] = mesh["bucketed"]
+    mesh, widest = run_phase(st, "10b_mesh_campaign_n40",
+                             phase_mesh_campaign_n40, dev)
     for tag, strategy, S in (("s1", "ordered", 48),
                              ("s2", "concurrent",
                               48 // MESH_CAMPAIGN["islands"])):
-        launches[f"mesh_campaign_n40_{tag}"] = mesh[strategy]
-        PATHS[f"mesh_campaign_n40_{tag}"] = (
+        L[f"mesh_campaign_n40_{tag}"] = mesh[strategy]
+        P[f"mesh_campaign_n40_{tag}"] = (
             dict(RESTARTS, S=S, lam=widest[strategy]), None)
-    launches["mesh_card_vs_cpu"] = timed("10c_mesh_card_vs_cpu",
-                                         phase_mesh_card_vs_cpu, dev)
-    launches["service_stream_n40"], widest = timed(
-        "11_service_stream_n40", phase_service_stream, dev)
-    PATHS["service_stream_n40"] = (dict(RESTARTS, S=SERVICE["rows"],
-                                        lam=widest), None)
-    launches["service_snapshot_n40"] = timed(
-        "11b_service_snapshot_resume", phase_service_snapshot, dev)
-    launches["service_card_vs_cpu"] = timed(
-        "11c_service_card_vs_cpu", phase_service_card_vs_cpu, dev)
-    launches["strategies_kdist_f8"] = timed("6_strategies", phase_strategies,
-                                            dev)
-    launches["strategies_small_card_vs_cpu"] = timed(
-        "6b_small_strategies", phase_small_strategies, dev)
-    launches["strategies_krep_n1000"] = timed("6c_krep", phase_krep_n1000,
-                                              dev)
-    launches["serve_qwen2"] = timed("7_serve_qwen2", phase_serve, dev,
-                                    "qwen2-0.5b")
+    L["mesh_card_vs_cpu"] = run_phase(st, "10c_mesh_card_vs_cpu",
+                                      phase_mesh_card_vs_cpu, dev)
+    L["campaign_card_vs_cpu"] = run_phase(
+        st, "9c_campaign_card_vs_cpu", phase_campaign_card_vs_cpu, dev)
+    L["campaign_bbob24_n1000"] = run_phase(st, "9d_campaign_n1000",
+                                           phase_campaign_wide, dev)
+    run_phase(st, "9e_no_fallback", phase_no_fallback, dev)
+
+
+def group_service(dev, st):
+    """12c's reassigning run, then phases 11-11c, 9b, 4d and 7c."""
+    L, P = st["launches"], st["paths"]
+    fleet_step(dev, st, "service_reassign_rejoin", "12c_fleet_reassign")
+    L["service_stream_n40"], widest = run_phase(
+        st, "11_service_stream_n40", phase_service_stream, dev)
+    P["service_stream_n40"] = (dict(RESTARTS, S=SERVICE["rows"], lam=widest),
+                               None)
+    L["service_snapshot_n40"], widest = run_phase(
+        st, "11b_service_snapshot_resume", phase_service_snapshot, dev)
+    P["service_snapshot_n40"] = (dict(RESTARTS, S=SERVICE["rows"],
+                                      lam=widest), None)
+    L["service_card_vs_cpu"], widest = run_phase(
+        st, "11c_service_card_vs_cpu", phase_service_card_vs_cpu, dev)
+    P["service_card_vs_cpu"] = (dict(S=4, lam=widest, n=SERVICE_SMALL["n"]),
+                                None)
+    L["campaign_sep_rng_n40"], widest = run_phase(
+        st, "9b_campaign_sep_rng", phase_campaign_sep_rng, dev)
+    P["campaign_sep_rng_n40"] = (
+        dict(RESTARTS, S=CAMPAIGN_SEP_SLOTS, lam=widest), None)
+    L["hostloop_f1"] = run_phase(st, "4d_hostloop", phase_hostloop, dev)
+    L["serve_card_vs_cpu"] = run_phase(st, "7c_card_vs_cpu",
+                                       phase_card_vs_cpu, dev)
+
+
+def group_lm(dev, st):
+    """12c's parking run, then phases 4c, 7, 7b and 8."""
+    L, P = st["launches"], st["paths"]
+    fleet_step(dev, st, "service_park", "12c_fleet_park")
+    L["float32_f1"] = run_phase(st, "4c_float32", phase_float32, dev)
+    P["float32_f1"] = (RESTARTS, 1, torch.float32)
+    L["serve_qwen2"] = run_phase(st, "7_serve_qwen2", phase_serve, dev,
+                                 "qwen2-0.5b")
     torch.cuda.empty_cache()
-    launches["serve_rwkv6"] = timed("7b_serve_rwkv6", phase_serve, dev,
-                                    "rwkv6-3b")
+    L["serve_rwkv6"] = run_phase(st, "7b_serve_rwkv6", phase_serve, dev,
+                                 "rwkv6-3b")
     torch.cuda.empty_cache()
-    launches["serve_card_vs_cpu"] = timed("7c_card_vs_cpu", phase_card_vs_cpu,
-                                          dev)
-    launches["nn_fitness_qwen2"] = timed("8_nn_fitness", phase_nn_fitness,
-                                         dev)
-    timed("5_table", phase_table, dev, errs, launches)
-    emit({"phase_seconds": seconds})
+    L["nn_fitness_qwen2"], shape = run_phase(st, "8_nn_fitness",
+                                             phase_nn_fitness, dev)
+    P["nn_fitness_qwen2"] = (shape, None)
+
+
+#: the phases between the build (phase 1) and the kernels line (phase 5),
+#: in five groups of about equal time (the phases' seconds with the five
+#: at once on an H100 80GB HBM3 at 700.00 W: 280-330 s a group, from 160-
+#: 190 s alone).  Each group runs in a worker process of its own, all at
+#: once: a CMA-ES step is host-bound (the card is busy a third of it), so
+#: the workers share the card's idle time.  Phase 12's five parts come
+#: first, each in its own worker.
+GROUPS = {"engines": group_engines, "campaigns": group_campaigns,
+          "mesh": group_mesh, "service": group_service, "lm": group_lm}
+
+
+def new_state():
+    return {"launches": {}, "paths": {}, "spans": {}, "errs": None}
+
+
+def _plain(x):
+    """JSON for the numpy and torch scalars of a group's state."""
+    if isinstance(x, torch.dtype):
+        return str(x)
+    if isinstance(x, (np.integer, np.floating)):
+        return x.item()
+    raise TypeError(f"{type(x).__name__} in a group's state")
+
+
+def load_state(text):
+    """A worker's state, its paths' dtypes back to ``torch.dtype``."""
+    st = json.loads(text)
+    st["paths"] = {p: (v[0], v[1], *(getattr(torch, t.split(".")[-1])
+                                     for t in v[2:]))
+                   for p, v in st["paths"].items()}
+    return st
+
+
+def setup():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def worker(group, out, threads):
+    """Run one group on the card; its state to ``out`` as JSON.  The
+    worker is killed when its parent dies."""
+    import ctypes
+    import signal
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)       # PR_SET_PDEATHSIG
+    dev = torch.device("cuda")
+    setup()
+    torch.set_num_threads(threads)
+    st = new_state()
+    GROUPS[group](dev, st)
+    Path(out).write_text(json.dumps(st, default=_plain))
+
+
+def spawn_groups(tmp, threads):
+    """One worker process a group, all at once, each printing to
+    ``tmp/<group>.out`` and leaving its state in ``tmp/<group>.json``.
+    When one fails the others are killed; every worker has ended on
+    return.  Returns each group's exit code and wall seconds."""
+    procs, walls = {}, {}
+    t0 = time.time()
+    try:
+        for g in GROUPS:
+            with open(tmp / f"{g}.out", "w") as log:
+                procs[g] = subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--group", g, "--out", str(tmp / f"{g}.json"),
+                     "--threads", str(threads)], stdout=log)
+        while len(walls) < len(procs):
+            for g, p in procs.items():
+                if g not in walls and p.poll() is not None:
+                    walls[g] = time.time() - t0
+            if any(p.returncode for p in procs.values()):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return {g: p.returncode for g, p in procs.items()}, walls
+
+
+def run_groups(dev, serial=False):
+    """Every group's state: with ``serial``, one after another in this
+    process; otherwise one worker process each, all at once
+    (``spawn_groups``), their lines printed in ``GROUPS``' order when all
+    have ended."""
+    if serial:
+        states = {}
+        for g, fn in GROUPS.items():
+            states[g] = new_state()
+            fn(dev, states[g])
+        return states, {}
+    threads = max(1, len(os.sched_getaffinity(0)) // len(GROUPS))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        rcs, walls = spawn_groups(tmp, threads)
+        for g in GROUPS:
+            if (tmp / f"{g}.out").exists():
+                sys.stdout.write((tmp / f"{g}.out").read_text())
+        sys.stdout.flush()
+        failed = {g: rc for g, rc in rcs.items() if rc}
+        if failed or len(rcs) < len(GROUPS):
+            raise SystemExit(f"chip_smoke.py: phase groups failed (exit "
+                             f"codes; -9: stopped after another failed): "
+                             f"{failed}")
+        states = {g: load_state((tmp / f"{g}.json").read_text())
+                  for g in GROUPS}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return states, {"workers": len(GROUPS), "threads": threads,
+                    "wall_s": walls}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--serial", action="store_true",
+                    help="run the phase groups one after another in this "
+                         "process (default: a worker process a group, all "
+                         "at once)")
+    ap.add_argument("--group", choices=GROUPS, help=argparse.SUPPRESS)
+    ap.add_argument("--out", help=argparse.SUPPRESS)
+    ap.add_argument("--threads", type=int, default=1, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device")
+    if args.group:
+        worker(args.group, args.out, args.threads)
+        return 0
+    dev = torch.device("cuda")
+    t0 = time.time()
+    phase_build(dev)
+    seconds = {"1_build": time.time() - t0}
+    states, run = run_groups(dev, args.serial)
+    launches, spans, errs = {}, {}, None
+    for st in states.values():
+        launches.update(st["launches"])
+        PATHS.update(st["paths"])
+        spans.update(st["spans"])
+        errs = st["errs"] or errs
+    seconds.update({k: e - s for k, (s, e) in spans.items()})
+    parts = [spans[k] for k in spans if k.startswith("12")]
+    emit({"phase": "fleet", "span_s": max(e for _s, e in parts)
+          - min(s for s, _e in parts),
+          "parts_s": {k: seconds[k] for k in spans if k.startswith("12")}})
+    emit({"phase": "groups", **run, "serial": args.serial,
+          "phases": {g: list(st["spans"]) for g, st in states.items()},
+          "after_build_s": time.time() - t0 - seconds["1_build"]})
+    t1 = time.time()
+    phase_table(dev, errs, launches)
+    seconds["5_table"] = time.time() - t1
+    emit({"phase_seconds": seconds, "total_s": time.time() - t0})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

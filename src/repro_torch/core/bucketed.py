@@ -27,9 +27,14 @@ pull already brought to the host.  ``segment_scan(max_evals=...)`` takes
 a (B,) tensor of per-member budgets, which is how the campaign service
 runs jobs of different budgets in one segment (``service/server.py``).
 
-Waiting (ROADMAP.md): the fleet supervisor hooks (queue A item 12), which
-raise; one CUDA graph per bucket segment, which ``torch.linalg.eigh``'s
-host sync inside a segment rules out for now.
+``drive_segments(supervisor=...)`` takes a ``repro_torch.fleet``
+``IslandSupervisor``: periodic host snapshots of the carry, injected
+faults, health grading of the boundary pulls and recovery by replay from
+the last snapshot (``fleet/controller.py``); without one each hook site is
+one host ``is None`` test.
+
+Waiting (ROADMAP.md): one CUDA graph per bucket segment, which
+``torch.linalg.eigh``'s host sync inside a segment rules out for now.
 """
 from __future__ import annotations
 
@@ -49,14 +54,6 @@ from repro_torch.kernels import ops
 
 #: a guard: the driver raises after this many segments
 MAX_SEGMENTS = 10_000
-
-
-def no_fleet(what: str, value) -> None:
-    """Fleet supervision is not ported: a supervisor or fleet raises."""
-    if value is not None:
-        raise NotImplementedError(
-            f"fleet supervision ({what}) is not ported "
-            "(ROADMAP.md, queue A item 12)")
 
 
 @dataclasses.dataclass
@@ -287,9 +284,10 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     ``max_evals`` per member in the bucket choice (``next_bucket``).
     Returns ``(carry, trace, segments, bucket_wall)``: one record per
     segment, and the host seconds per bucket.  ``log``, a dict, receives
-    ``"segments"`` and ``"pulls"``, the schedule reads (segments + 1);
-    more than ``max_segments`` segments raise.  ``supervisor`` (the JAX
-    package's fleet hook) raises: it is not ported.
+    ``"segments"`` and ``"pulls"``, the schedule reads (segments + 1
+    without a recovery), and under a supervisor ``"replayed"``, the
+    records a recovery dropped (the segments between the snapshot and the
+    death, run again); more than ``max_segments`` segments raise.
 
     With ``overlap`` (default ``engine.overlap``), at each boundary after
     the first the schedule's copy is queued, then the next segment of the
@@ -303,8 +301,17 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
 
     The loop emits the ``bucketed_*`` series and the ``pull`` and
     ``segment`` spans of ``repro_torch.obs`` from the pulled numpy arrays
-    and ``perf_counter`` deltas only: no device read of its own."""
-    no_fleet("supervisor", supervisor)
+    and ``perf_counter`` deltas only: no device read of its own.
+
+    ``supervisor`` (a ``repro_torch.fleet`` ``IslandSupervisor``) adds
+    fleet supervision at three host-side points: a per-boundary
+    snapshot/recovery hook (on a death verdict the carry is restored and
+    the traces and segment records taken after the snapshot dropped; the
+    speculation and progress anchors are forgotten, so a speculative
+    segment from before the kill is never taken), a supervised pull
+    (corruption retries + health grading; a retry pulls again
+    synchronously), and a pre-dispatch delay hook, called before the
+    speculative dispatch too.  ``None`` costs one host ``if`` a site."""
     overlap = bool(engine.overlap) if overlap is None else bool(overlap)
     pull = pull_schedule if pull is None else pull
     reg, tracer = obs.metrics(), obs.tracer()
@@ -312,24 +319,40 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     segments: List[dict] = []
     bucket_wall: Dict[int, float] = {}
     pulls = 0
+    replayed: List[dict] = []           # records a recovery dropped
     seg_len: Dict[int, int] = {}        # one segment length per bucket
     k_prev: Optional[int] = None
     fev_prev: Optional[float] = None    # the budget pulled a boundary ago
 
     for b in range(max_segments):
-        spec = None
+        if supervisor is not None:
+            carry, keep, recovered = supervisor.segment_boundary(
+                b, carry, len(seg_traces))
+            if recovered:
+                # replay from the restored snapshot: drop what came after
+                # it and forget the stale speculation/progress anchors
+                replayed.extend(segments[keep:])
+                del seg_traces[keep:]
+                del segments[keep:]
+                k_prev = None
+                fev_prev = None
+        spec = pending = None
         pulls += 1
         if overlap and k_prev is not None:
             pending = pull(carry, wait=False)
+            if supervisor is not None:
+                supervisor.before_dispatch(0, b)
             t0 = time.perf_counter()
             spec = dispatch(k_prev, seg_len[k_prev], carry)
             spec_s = time.perf_counter() - t0
-            pull_span = tracer.start("pull", island="all", boundary=b)
-            t0 = time.perf_counter()
+        pull_span = tracer.start("pull", island="all", boundary=b)
+        t0 = time.perf_counter()
+        if supervisor is not None:
+            k_idx, active, fevals, best_f = supervisor.pull(
+                0, b, _reread(pending, pull, carry))
+        elif pending is not None:
             k_idx, active, fevals, best_f = pending()
         else:
-            pull_span = tracer.start("pull", island="all", boundary=b)
-            t0 = time.perf_counter()
             k_idx, active, fevals, best_f = pull(carry)
         sync_s = time.perf_counter() - t0
         tracer.end(pull_span)
@@ -354,6 +377,8 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
             carry, tr = spec
             wall = spec_s
         else:
+            if supervisor is not None:
+                supervisor.before_dispatch(0, b)
             t0 = time.perf_counter()
             carry, tr = dispatch(k, seg_len[k], carry)
             wall = time.perf_counter() - t0
@@ -385,6 +410,8 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
 
     if log is not None:
         log.update(segments=segments, pulls=pulls)
+        if supervisor is not None:
+            log["replayed"] = replayed
     if not seg_traces:
         # nothing could run (a budget below one λ_start generation): the
         # padded engine's empty-progress result, with zero generations
@@ -392,6 +419,18 @@ def drive_segments(engine: BucketedLadderEngine, carry: ladder.LadderCarry,
     trace = ladder.LadderTrace(*(torch.cat(leaves, dim=time_axis)
                                  for leaves in zip(*seg_traces)))
     return carry, trace, segments, bucket_wall
+
+
+def _reread(pending: Optional[Callable], pull: Callable, carry) -> Callable:
+    """The supervised pull's read: the queued copy (``pending``) the
+    first time, where there is one, then ``pull(carry)`` again, so that a
+    retry re-reads the device."""
+    first = [pending]
+
+    def read():
+        fn, first[0] = first[0], None
+        return fn() if fn is not None else pull(carry)
+    return read
 
 
 def _empty_trace(carry, time_axis: int) -> ladder.LadderTrace:
@@ -428,8 +467,8 @@ def run_bucketed_single(engine: BucketedLadderEngine, base_key,
     ``ipop.run_ipop``.  ``base_key`` is an int seed or a (2,) key.
     Returns ``(carry, trace)`` shaped like ``LadderEngine.run``'s (trace
     leaves (T, 1)); ``log`` receives the driver's segment records and
-    pulls (``drive_segments``).  ``supervisor`` raises (not ported)."""
-    no_fleet("supervisor", supervisor)
+    pulls (``drive_segments``); ``supervisor`` supervises the run
+    (``drive_segments``)."""
     base_key = engine.full.base_key(base_key)
     carry = engine.init_carry(base_key)
     fitness_fn = ops.slot_fitness(fitness_fn, engine.full.n_slots,
@@ -439,7 +478,8 @@ def run_bucketed_single(engine: BucketedLadderEngine, base_key,
         return engine.segment_scan(k, base_key, fitness_fn, c, seg_gens)
 
     carry, trace, _segs, _walls = drive_segments(
-        engine, carry, dispatch, max_segments, time_axis=0, log=log)
+        engine, carry, dispatch, max_segments, time_axis=0,
+        supervisor=supervisor, log=log)
     return carry, trace
 
 

@@ -86,6 +86,15 @@ def _result_from_ladder(engine: ladder_mod.LadderEngine,
                       descents=descents, driver=driver)
 
 
+def _fleet_supervisor(fleet):
+    """A fresh engine-level supervisor from a FleetConfig (None passes
+    through — the zero-overhead default)."""
+    if fleet is None:
+        return None
+    from repro_torch.fleet.controller import IslandSupervisor
+    return IslandSupervisor(fleet)
+
+
 class ShapeDtype(NamedTuple):
     """The (shape, dtype) record of one array of ``result_template``."""
     shape: tuple
@@ -172,15 +181,16 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
     samples through the eval-fused kernel.  ``impl`` picks the tier on every backend
     (``kernels/ops.py``) and is validated first.  ``key`` is an int seed
     or a (2,) key tensor (``core/prng.py``).  ``device=None`` runs on the
-    CUDA device and raises without one.  ``fleet`` (the JAX package's
-    fleet supervision) applies to the segment-driven backends and is not
-    ported: any value but None raises ``NotImplementedError`` naming its
-    ROADMAP.md queue A item."""
+    CUDA device and raises without one.  ``fleet`` (a
+    ``repro_torch.fleet.FleetConfig``) adds fleet supervision — periodic
+    island snapshots, health monitoring, optional injected faults,
+    snapshot-replay recovery — to the segment-driven backends
+    (``bucketed``, ``mesh``, ``service``); the recovered result is the
+    unsupervised run's."""
     ops.validate_impl(impl)
     if fleet is not None and backend not in ("bucketed", "mesh", "service"):
         raise ValueError("fleet supervision applies to backend='bucketed', "
                          f"'mesh' or 'service', not {backend!r}")
-    bucketed_mod.no_fleet("fleet", fleet)
     if backend in ("bucketed", "hostloop", "mesh", "service") and \
             total_gens is not None:
         raise ValueError(f"total_gens only applies to backend='ladder', not "
@@ -192,7 +202,8 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             device=device)
         log: dict = {}
         carry, trace = bucketed_mod.run_bucketed_single(
-            engine_b, key, fitness_fn, log=log)
+            engine_b, key, fitness_fn, supervisor=_fleet_supervisor(fleet),
+            log=log)
         return _result_from_ladder(engine_b.full, carry, trace, log)
     if backend == "hostloop":
         return run_ipop_hostloop(
@@ -204,14 +215,15 @@ def run_ipop(fitness_fn: Callable, n: int, key, lam_start: int = 12,
             n=n, lam_start=lam_start, kmax_exp=kmax_exp, max_evals=max_evals,
             domain=domain, sigma0_frac=sigma0_frac, impl=impl, dtype=dtype,
             strategy=mesh_strategy, device=device)
-        carry, trace = mesh_engine.run_mesh_single(engine_m, key, fitness_fn)
+        carry, trace = mesh_engine.run_mesh_single(
+            engine_m, key, fitness_fn, supervisor=_fleet_supervisor(fleet))
         return _result_from_ladder(engine_m.bucketed.full, carry, trace)
     if backend == "service":
         from repro_torch.service.server import run_service_single
         return run_service_single(
             fitness_fn, n, key, lam_start=lam_start, kmax_exp=kmax_exp,
             max_evals=max_evals, domain=domain, sigma0_frac=sigma0_frac,
-            impl=impl, dtype=dtype, device=device)
+            impl=impl, dtype=dtype, fleet=fleet, device=device)
     if backend != "ladder":
         raise ValueError(f"unknown backend {backend!r}")
     engine = ladder_mod.LadderEngine(

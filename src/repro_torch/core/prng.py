@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -50,10 +51,35 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) | (x >> (32 - r))) & MASK32
 
 
+def _threefry_np(k0, k1, x0, x1):
+    """``threefry2x32`` on CPU tensors, in numpy's uint32 (whose sums wrap
+    mod 2³², so no masks): the same words, at a fraction of the host time
+    of torch's per-op dispatch on the few-element keys of a generation."""
+    words = torch.broadcast_tensors(k0, k1, x0, x1)
+    shape = words[0].shape
+    # 1-d arrays throughout: numpy's 0-d results are scalars, which warn
+    # on the wrap
+    k0, k1, x0, x1 = (a.reshape(-1).numpy().astype(np.uint32)
+                      for a in words)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for i in range(5):
+        for r in (_ROT_A if i % 2 == 0 else _ROT_B):
+            x0 = x0 + x1
+            x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return (torch.from_numpy(x0.astype(np.int64)).reshape(shape),
+            torch.from_numpy(x1.astype(np.int64)).reshape(shape))
+
+
 def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor):
     """Threefry-2x32 with 20 rounds on broadcastable int64-held uint32 words.
-    Returns the two output words."""
+    Returns the two output words (CPU tensors through ``_threefry_np``)."""
+    if k0.device.type == "cpu" and x0.device.type == "cpu":
+        return _threefry_np(k0, k1, x0, x1)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32

@@ -41,8 +41,12 @@ The engine emits the ``mesh_*`` series and the ``compile``,
 ``dispatch`` and ``block`` spans of ``repro_torch.obs`` (S1 also the
 bucketed driver's) from host values only.
 
-Waiting (ROADMAP.md): the fleet supervisor hooks (queue A item 12), which
-raise; ``lower_ordered_segment`` (item 15).
+Both strategies take a ``repro_torch.fleet`` ``IslandSupervisor``
+(``supervisor=``): S1 is one island through ``drive_segments``, S2 has
+one island a shard, each snapshotted on the host and replayed from its
+snapshot when it dies (``fleet/controller.py``).
+
+Waiting (ROADMAP.md): ``lower_ordered_segment`` (item 15).
 """
 from __future__ import annotations
 
@@ -341,8 +345,10 @@ class MeshCampaignEngine:
         """S1: the bucketed re-bucketing loop (``drive_segments``) with one
         segment call per device group and the gathered pull.  The exchange
         scalars fold when a pull reads a segment's carry: each accepted
-        segment gives one record, a mispredicted speculative one none."""
-        bucketed.no_fleet("supervisor", supervisor)
+        segment gives one record, a mispredicted speculative one none.
+        A ``supervisor`` sees S1 as ONE island: its failure domain is the
+        whole mesh program, so recovery restores every member slice, each
+        on its own device."""
         mesh = self.mesh
         groups = device_groups(mesh)
         keys_g = shard_members(keys, mesh, groups)
@@ -400,45 +406,75 @@ class MeshCampaignEngine:
         log: dict = {}
         carries, trace, segments, bucket_wall = bucketed.drive_segments(
             self.bucketed, carries, dispatch, max_segments, time_axis=1,
-            pull=pull, overlap=self.overlap, log=log)
+            pull=pull, overlap=self.overlap, supervisor=supervisor, log=log)
         carry = join_members(carries, mesh, groups, device=self.device)
         return dict(carry=carry, trace=trace, segments=segments,
                     bucket_wall=bucket_wall, exchange=exchange,
-                    shard_segments=None, pulls=log["pulls"])
+                    shard_segments=None, pulls=log["pulls"],
+                    replayed=log.get("replayed", []))
 
     def _drive_concurrent(self, keys, insts, carry, branch_fids, fitness_fn,
                           max_segments: int, supervisor=None):
         """S2: one island per member slice, each with its own
         re-bucketing loop.  The host takes the islands in turn: pulls the
         island's schedule, decides and runs its next segment; then folds
-        the islands' budget and best into the shared view."""
-        bucketed.no_fleet("supervisor", supervisor)
+        the islands' budget and best into the shared view.
+
+        ``supervisor`` (``repro_torch.fleet``) supervises each island:
+        periodic host snapshots of the shard, kill/delay/corrupt faults,
+        health grading of the per-island pulls, and recovery by replay
+        from the shard's snapshot on a surviving device (the same card
+        when every island is on it); the segment records a recovery
+        dropped come back as ``replayed``, as S1's do.  ``None`` costs one
+        host ``if`` a hook site."""
         eng = self.bucketed
         mesh = self.mesh
         keys_s = shard_members(keys, mesh)
         carry_s = shard_members(carry, mesh)
         insts_s = (shard_members(insts, mesh) if insts is not None
                    else [None] * mesh.size)
+
+        def refit(ins, B):
+            # a campaign shard's fitness on another device (the fleet's
+            # replacement device); a generic fitness stays where it is
+            return lambda dev: self._fitness(tree_map(
+                lambda a: a.to(dev), ins), branch_fids, None, B)
         shards = [{"keys": ks, "carry": cs, "traces": [], "segments": [],
                    "fit": self._fitness(ins, branch_fids, fitness_fn,
                                         int(ks.shape[0])),
+                   "refit": (None if ins is None
+                             else refit(ins, int(ks.shape[0]))),
                    "done": False, "best": np.inf, "fevals": 0}
                   for ks, cs, ins in zip(keys_s, carry_s, insts_s)]
         seg_len: Dict[int, int] = {}    # shared: the first island sizes it
         bucket_wall: Dict[int, float] = {}
         exchange: List[dict] = []
         pulls = 0
+        replayed: List[dict] = []       # records a recovery dropped
         reg, tracer = obs.metrics(), obs.tracer()
+        devs = list(mesh.devices)
+        if supervisor is not None:
+            supervisor.mesh_init(shards, devs)
 
         for rnd in range(max_segments):
+            if supervisor is not None:
+                before = [sh["segments"] for sh in shards]
+                supervisor.mesh_round(rnd, shards, devs)
+                for old, sh in zip(before, shards):
+                    replayed.extend(old[len(sh["segments"]):])
             dispatched = retired = finished = 0
             for s, sh in enumerate(shards):
                 if sh["done"]:
                     continue
                 blk = tracer.start("block", island=s, boundary=rnd)
                 t0 = time.perf_counter()
-                k_idx, active, fevals, best_f = bucketed.pull_schedule(
-                    sh["carry"])
+                if supervisor is not None:
+                    k_idx, active, fevals, best_f = supervisor.pull(
+                        s, rnd,
+                        lambda _c=sh["carry"]: bucketed.pull_schedule(_c))
+                else:
+                    k_idx, active, fevals, best_f = bucketed.pull_schedule(
+                        sh["carry"])
                 tracer.end(blk)
                 reg.histogram("mesh_island_block_s", island=s).observe(
                     time.perf_counter() - t0)
@@ -464,6 +500,8 @@ class MeshCampaignEngine:
                     continue
                 runner = self.island_runner(k, seg_len[k], branch_fids,
                                             fitness_fn)
+                if supervisor is not None:
+                    supervisor.before_dispatch(s, rnd)
                 dsp = tracer.start("dispatch", island=s, bucket=int(k),
                                    boundary=rnd)
                 t0 = time.perf_counter()
@@ -517,7 +555,7 @@ class MeshCampaignEngine:
         return dict(carry=carry, trace=trace, segments=segments,
                     bucket_wall=bucket_wall, exchange=exchange,
                     shard_segments=[sh["segments"] for sh in shards],
-                    pulls=pulls)
+                    pulls=pulls, replayed=replayed)
 
     def drive(self, *args, **kw) -> dict:
         return (self._drive_ordered if self.strategy == "ordered"
@@ -572,8 +610,8 @@ def run_campaign_mesh(engine: MeshCampaignEngine, fids, instances=(1,),
     """A whole BBOB campaign through the mesh engine: the member layout,
     instances and keys of ``run_campaign_bucketed``, the members padded to
     the mesh with inert rows and deployed per ``engine.strategy``; the
-    pads are sliced off the result."""
-    bucketed.no_fleet("supervisor", supervisor)
+    pads are sliced off the result.  ``supervisor`` (``repro_torch.fleet``)
+    supervises the engine's driver."""
     eng = engine.bucketed
     members = ladder.campaign_members(tuple(fids), instances, runs)
     stacked = ladder.campaign_instances(members, engine.n,
@@ -582,7 +620,8 @@ def run_campaign_mesh(engine: MeshCampaignEngine, fids, instances=(1,),
     keys = ladder.member_keys(seed, len(members), eng.device)
     keys, carry, insts, B, B_pad = engine.pad_batch(
         keys, eng.init_carry(keys), stacked)
-    out = engine.drive(keys, insts, carry, branch_fids, None, max_segments)
+    out = engine.drive(keys, insts, carry, branch_fids, None, max_segments,
+                       supervisor=supervisor)
 
     carry = out["carry"]
     trace = ladder.LadderTrace(*(x[:B].cpu().numpy() for x in out["trace"]))
@@ -613,12 +652,13 @@ def run_mesh_single(engine: MeshCampaignEngine, key, fitness_fn: Callable,
     rides island 0; the other islands carry inert pads.  Returns
     ``(carry, trace)`` in ``run_bucketed_single``'s one-problem layout
     (trace leaves (T, S)).  S1 runners are cached per call, S2's by the
-    closure object, so no call replays another's fitness."""
-    bucketed.no_fleet("supervisor", supervisor)
+    closure object, so no call replays another's fitness.  ``supervisor``
+    supervises the engine's driver."""
     eng = engine.bucketed
     keys = eng.full.base_key(key)[None]
     keys, carry, _insts, _B, _B_pad = engine.pad_batch(
         keys, eng.init_carry(keys))
-    out = engine.drive(keys, None, carry, (), fitness_fn, max_segments)
+    out = engine.drive(keys, None, carry, (), fitness_fn, max_segments,
+                       supervisor=supervisor)
     return (tree_map(lambda a: a[0], out["carry"]),
             tree_map(lambda a: a[0], out["trace"]))

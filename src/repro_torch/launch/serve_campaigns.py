@@ -6,7 +6,9 @@ JSON).
       [--requests reqs.json | --synthetic 8] [--devices 4] [--device cpu] \
       [--snapshot-dir ckpt --snapshot-every 4] [--resume] [--out results.json] \
       [--metrics-out metrics.jsonl] [--metrics-port 9100] \
-      [--trace-out trace.json] [--postmortem-dir pm]
+      [--trace-out trace.json] [--postmortem-dir pm] \
+      [--fleet] [--chaos-kills 1:3:2,...] [--fleet-deadline-s 30] \
+      [--fleet-skew 0.5]
 
 ``--metrics-out`` appends one JSONL record of every live
 ``repro_torch.obs`` series per service round (``docs/METRICS.md``);
@@ -15,15 +17,20 @@ a JSON ``GET /statusz``.  ``--trace-out PATH`` writes the run's spans on
 exit: PATH gets the Chrome ``trace_event`` JSON (ui.perfetto.dev) and
 ``PATH + 'l'`` the raw span records that ``python -m
 repro_torch.obs.trace --summarize`` digests.  ``--postmortem-dir`` arms the
-flight recorder: a job quarantine dumps ``postmortem-<island>-<boundary>
-.json`` there.
+flight recorder: an island death or a job quarantine dumps
+``postmortem-<island>-<boundary>.json`` there.
 
 ``--devices N`` gives every lane N islands (``make_campaign_mesh(N)``:
 round-robin over the visible CUDA devices, eight on one card if N = 8);
 ``--device cpu`` puts them on the CPU.  The service runs on the CUDA
-device unless ``--device`` says otherwise.  ``--fleet`` and
-``--chaos-kills`` (fleet supervision, ROADMAP.md queue A item 12) are not
-ported and exit with an error.
+device unless ``--device`` says otherwise.  ``--fleet`` drives the
+service through a ``repro_torch.fleet.FleetController`` (health
+monitoring, snapshots every ``--snapshot-every`` rounds, or 4, recovery of
+a dead island's rows onto the survivors, skew rebalancing at
+``--fleet-skew``); ``--chaos-kills "island:boundary[:down_for],..."``
+injects kills and implies ``--fleet``.  Recovery reads the last snapshot
+when ``--snapshot-dir`` is given, and replays rows from their requests
+otherwise.
 
 ``--requests`` takes a JSON list of CampaignRequest dicts, each optionally
 carrying an ``arrival_s`` offset; ``--synthetic N`` generates a mixed-dim
@@ -73,19 +80,17 @@ def _parser():
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--max-steps", type=int, default=10_000)
     ap.add_argument("--fleet", action="store_true",
-                    help="fleet supervision (not ported: exits with an "
-                         "error)")
+                    help="supervise the service with a FleetController "
+                         "(health monitoring + snapshot recovery)")
     ap.add_argument("--fleet-deadline-s", type=float, default=30.0,
                     help="boundary-pull deadline before an island is "
-                         "suspect (fleet supervision; inert until the fleet "
-                         "is ported, ROADMAP.md queue A item 12)")
+                         "suspect")
     ap.add_argument("--fleet-skew", type=float, default=0.5,
-                    help="slot-occupancy skew that triggers a lane repack "
-                         "(fleet supervision; inert until the fleet is "
-                         "ported, ROADMAP.md queue A item 12)")
+                    help="slot-occupancy skew that triggers a lane repack")
     ap.add_argument("--chaos-kills", default=None,
-                    help="injected kill schedule (fleet supervision, not "
-                         "ported: exits with an error)")
+                    help="injected kill schedule "
+                         "'island:boundary[:down_for],...' (implies "
+                         "--fleet)")
     ap.add_argument("--out", default=None, help="write results JSON here")
     ap.add_argument("--metrics-out", default=None,
                     help="append a metrics JSONL record every service round")
@@ -95,17 +100,13 @@ def _parser():
                     help="write a Perfetto-loadable trace_event JSON here "
                          "on exit (raw spans land beside it as .jsonl)")
     ap.add_argument("--postmortem-dir", default=None,
-                    help="flight-recorder dump directory (a job "
-                         "quarantine writes postmortem-*.json here)")
+                    help="flight-recorder dump directory (island death or "
+                         "job quarantine writes postmortem-*.json here)")
     return ap
 
 
 def main(argv=None):
-    args = _parser().parse_args(argv)
-    if args.fleet or args.chaos_kills:
-        raise SystemExit("--fleet / --chaos-kills: fleet supervision is not "
-                         "ported (ROADMAP.md, queue A item 12)")
-    return _serve(args)
+    return _serve(_parser().parse_args(argv))
 
 
 def _synthetic_requests(args):
@@ -184,6 +185,21 @@ def _serve(args):
         print(f"[serve] metrics at http://127.0.0.1:{port}/metrics, "
               f"status at /statusz", flush=True)
 
+    ctl = None
+    if args.fleet or args.chaos_kills:
+        from repro_torch.fleet import FaultPlan, FleetConfig
+        from repro_torch.fleet.controller import FleetController
+        plan = FaultPlan.parse(args.chaos_kills) if args.chaos_kills else None
+        ctl = FleetController(srv, FleetConfig(
+            snapshot_every=args.snapshot_every or 4, plan=plan,
+            deadline_s=args.fleet_deadline_s,
+            skew_threshold=args.fleet_skew,
+            postmortem_dir=args.postmortem_dir))
+        print(f"[serve] fleet supervision on "
+              f"(snapshot_every={srv.snapshot_every or ctl.cfg.snapshot_every}"
+              f"{', chaos plan ' + args.chaos_kills if plan else ''})",
+              flush=True)
+
     t0 = time.monotonic()
     tickets = []
     specs_by_job = {}
@@ -203,7 +219,7 @@ def _serve(args):
             except QueueFull:
                 raw.insert(0, spec)             # backpressure: retry later
                 break
-        stats = srv.step()
+        stats = ctl.step() if ctl is not None else srv.step()
         for t in srv.tickets.values():
             if t.done and not getattr(t, "_printed", False):
                 t._printed = True
@@ -226,7 +242,8 @@ def _serve(args):
                 print(f"[serve] ~job {t.job_id} shed, resubmitting "
                       f"(dedup_key={retry.get('dedup_key')})", flush=True)
         if (not stats.progressed() and not raw and not len(srv.queue)
-                and not srv._resident_jobs()):
+                and not srv._resident_jobs()
+                and not (ctl is not None and ctl._pending)):
             break
     wall = time.monotonic() - t0
 

@@ -46,9 +46,12 @@ package's layout; ``CampaignServer.restore`` rebuilds a server from the
 newest committed step (the JAX package's too), onto another island count
 if asked: rows are relocatable, so the allocator re-packs them.
 
-Fleet supervision (queue A item 12 of ROADMAP.md) is not ported:
-``fleet`` and ``down_islands`` stay as inert hook points, and
-``run_service_single(fleet=...)`` raises.
+Fleet supervision (``repro_torch.fleet.FleetController``) installs
+itself on ``fleet`` and marks failed islands in ``down_islands``: the
+server skips those islands, pulls through ``fleet.pull``, calls
+``fleet.before_dispatch`` and reads island grades from ``fleet.health``.
+Without a controller both stay empty and every hook site is one host
+``is None`` test.
 """
 from __future__ import annotations
 
@@ -461,8 +464,9 @@ class CampaignServer:
         self._dedup: Dict[str, int] = {}        # dedup_key -> job id
         self._noprog: Dict[int, Tuple[int, int]] = {}   # job -> (fev, flats)
         self._seg_jobs: Dict[tuple, set] = {}   # (lane key, island) -> jobs
-        # fleet supervision hook points (ROADMAP.md queue A item 12, not
-        # ported): no controller installs itself here, so both stay empty
+        # fleet supervision hook points (repro_torch.fleet.FleetController):
+        # the server never imports the fleet — a controller installs itself
+        # on ``fleet`` and marks failed islands in ``down_islands``
         self.fleet = None
         self.down_islands: set = set()
 
@@ -558,6 +562,30 @@ class CampaignServer:
         if ph is not None and ph.t1 is None:
             tr.end(ph)
         tr.end(spans["root"], status=t.status, reason=t.reason)
+
+    def _grade(self, island: int) -> str:
+        """The island's health grade: the fleet's, or "alive" without
+        one."""
+        return ("alive" if self.fleet is None
+                else self.fleet.health.state(island))
+
+    def note_recovery(self, job_id: int, island: int, mode: str,
+                      boundary: int):
+        """Fleet hook: stitch a recovered job's trace across the failure.
+        Ends the pre-failure "running" phase, drops a "recover" marker and
+        opens the post-failure "running" phase, all children of the same
+        root span."""
+        spans = self._job_spans.get(job_id)
+        if spans is None:
+            return
+        tr = obs.tracer()
+        ph = spans.get("phase")
+        if ph is not None and ph.t1 is None:
+            tr.end(ph, failed_island=island)
+        tr.event("recover", parent=spans["root"], job=job_id, mode=mode,
+                 failed_island=island, boundary=boundary)
+        spans["phase"] = tr.start("running", parent=spans["root"],
+                                  job=job_id)
 
     def _transition(self, t: CampaignTicket, status: str, reason: str = ""):
         """Move a ticket to ``status``: the edge is counted, entering
@@ -710,8 +738,14 @@ class CampaignServer:
         lbl = _lane_label(lane.key)
         pull_span = obs.tracer().start("pull", lane=lbl, island=i)
         t0 = time.perf_counter()
-        k_idx, active, fevals, best_f = bucketed.pull_schedule(
-            isl.arrays["carry"])
+        if self.fleet is not None:
+            k_idx, active, fevals, best_f = self.fleet.pull(
+                i, self._boundary_n,
+                lambda: bucketed.pull_schedule(isl.arrays["carry"]),
+                lane=lane.key, jobs=al.row_jobs[i].copy())
+        else:
+            k_idx, active, fevals, best_f = bucketed.pull_schedule(
+                isl.arrays["carry"])
         pull_wall = time.perf_counter() - t0
         obs.tracer().end(pull_span, boundary=self._boundary_n)
         reg.histogram("service_boundary_pull_s", lane=lbl).observe(pull_wall)
@@ -749,7 +783,7 @@ class CampaignServer:
         flight_recorder().observe(
             i, self._boundary_n, lane=lbl,
             wall=round(pull_wall, 6), fevals=int(np.sum(fevals)),
-            grade="alive",
+            grade=self._grade(i),
             verdicts=[{"job": job, "status": v[0], "reason": v[1]}
                       for _row, job, v in finish if v is not None])
         for row in deact:               # in place, after the last segment
@@ -789,6 +823,9 @@ class CampaignServer:
         with obs.tracer().span("dispatch", lane=lbl, island=i, bucket=int(k),
                                boundary=self._boundary_n):
             runner = lane.runner(k, lane.seg_len[k])
+            if self.fleet is not None:
+                self.fleet.before_dispatch(i, self._boundary_n,
+                                           live_rows=int(np.sum(live)))
             a = isl.arrays
             carry, tr = runner(a["keys"], a["budgets"],
                                lane.island_fitness(isl, i), a["carry"])
@@ -969,7 +1006,7 @@ class CampaignServer:
                     str(i): {
                         "occupancy": round(
                             1.0 - al.free_rows(i) / al.rows_per_island, 4),
-                        "health": "alive",
+                        "health": self._grade(i),
                         "down": i in self.down_islands,
                     } for i in range(al.n_islands)},
             }
@@ -1250,9 +1287,10 @@ def run_service_single(fitness_fn: Callable, n: int, key,
     ``backend="bucketed"`` on the same key.  ``fitness_fn`` is the row's
     callable branch (a ``FusableEval``'s coefficients are not used: the
     lane samples through the kernel without the fitness epilogue, as the
-    JAX package's service does).  ``fleet`` raises (ROADMAP.md queue A
-    item 12)."""
-    bucketed.no_fleet("fleet", fleet)
+    JAX package's service does).  ``fleet`` (a ``repro_torch.fleet``
+    ``FleetConfig``) drains the server under a ``FleetController`` with a
+    throwaway snapshot directory, so fault plans run through the public
+    ``run_ipop`` surface."""
     reg = FitnessRegistry()
     reg.register("job", fitness_fn)
     srv = CampaignServer(registry=reg, bbob_fids=(), lam_start=lam_start,
@@ -1262,5 +1300,13 @@ def run_service_single(fitness_fn: Callable, n: int, key,
                          devices=[resolve_device(device)])
     ticket = srv.submit(CampaignRequest(dim=n, budget=max_evals,
                                         fitness="job", key=key))
-    srv.drain()
+    if fleet is None:
+        srv.drain()
+        return ticket.result
+    import tempfile
+
+    from repro_torch.fleet.controller import FleetController
+    with tempfile.TemporaryDirectory() as td:
+        srv.snapshot_dir = td
+        FleetController(srv, fleet).drain()
     return ticket.result

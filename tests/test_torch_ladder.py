@@ -20,6 +20,7 @@ from repro.fitness import bbob as jb
 from repro_torch.core import ipop as tipop
 from repro_torch.core import ladder as tladder
 from repro_torch.fitness import bbob as tb
+from repro_torch.fleet import FleetConfig
 
 T = 24
 
@@ -120,8 +121,9 @@ def test_run_ipop_validates_impl_first(backend):
 
 def test_unported_options_raise():
     """The flat eigen schedule, the plain tiers, the host loop, the mesh
-    and the service backends are ported; unknown options raise ValueError
-    and a fleet names its ROADMAP.md item."""
+    and the service backends are ported; unknown options raise ValueError,
+    and so does a fleet on the ladder, as in JAX (fleet supervision runs on
+    the segment-driven backends only)."""
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, eigen_schedule="blocked", device="cpu")
     with pytest.raises(ValueError):
@@ -129,8 +131,8 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tladder.LadderEngine(n=3, restart_mode="half", device="cpu")
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tipop.run_ipop(fn, 3, 0, backend="service", fleet=object(),
+    with pytest.raises(ValueError, match="fleet supervision"):
+        tipop.run_ipop(fn, 3, 0, backend="ladder", fleet=FleetConfig(),
                        device="cpu")
     with pytest.raises(ValueError, match="total_gens"):
         tipop.run_ipop(fn, 3, 0, backend="service", total_gens=5,

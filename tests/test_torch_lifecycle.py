@@ -1,6 +1,7 @@
 """The request lifecycle of the port's campaign service: the counterparts
-of the JAX package's ``tests/test_lifecycle.py`` (fleet parts excepted:
-the fleet is not ported).
+of the JAX package's ``tests/test_lifecycle.py`` (its fleet-composition
+tests, a poison job never kills its island and slot reuse is no corrupt
+read, are in ``tests/test_torch_fleet.py``).
 
 * every job ends in one terminal status: cancel while queued and while
   running (a partial result), queue TTL and run deadline, NaN poison

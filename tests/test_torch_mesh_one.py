@@ -26,6 +26,8 @@ from repro_torch.core import ladder as tladder
 from repro_torch.distributed import mesh_engine as tmesh
 from repro_torch.distributed import sharding
 from repro_torch.fitness import bbob as tb
+from repro_torch.fleet import FaultPlan, FleetConfig
+from repro_torch.fleet.controller import IslandSupervisor
 from repro_torch.launch.mesh import make_campaign_mesh
 
 
@@ -114,11 +116,24 @@ def test_budget_below_one_generation_is_empty_progress(strategy):
 
 
 def test_unknown_strategy_and_supervisor_rejected():
+    """An unknown strategy raises; a supervisor is taken (fleet
+    supervision is ported): a campaign whose S1 island dies at boundary 1
+    replays from its snapshot to the unsupervised campaign, bit for bit."""
     with pytest.raises(ValueError, match="strategy"):
         tmesh.MeshCampaignEngine(n=3, strategy="barrier-free", device="cpu")
-    eng = tmesh.MeshCampaignEngine(n=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tmesh.run_campaign_mesh(eng, (1,), supervisor=object())
+    kw = dict(n=3, lam_start=8, kmax_exp=1, max_evals=400, device="cpu")
+    plain = tmesh.run_campaign_mesh(tmesh.MeshCampaignEngine(**kw), (1,),
+                                    runs=2)
+    sup = IslandSupervisor(FleetConfig(snapshot_every=1,
+                                       plan=FaultPlan.parse("0:1")))
+    got = tmesh.run_campaign_mesh(tmesh.MeshCampaignEngine(**kw), (1,),
+                                  runs=2, supervisor=sup)
+    assert sup.health.state(0) == "alive" and sup.snapshot_s
+    np.testing.assert_array_equal(got.total_fevals, plain.total_fevals)
+    np.testing.assert_array_equal(got.best_f, plain.best_f)
+    for f in INTS + FLOATS:
+        np.testing.assert_array_equal(getattr(got.trace, f),
+                                      getattr(plain.trace, f), err_msg=f)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,9 @@ SERVICE_MODULES = {"repro_torch.checkpoint.store", "repro_torch.obs",
                    "repro_torch.service.allocator",
                    "repro_torch.service.server",
                    "repro_torch.launch.serve_campaigns"}
+#: modules of the fleet slice the walk must reach
+FLEET_MODULES = {"repro_torch.fleet", "repro_torch.fleet.faults",
+                 "repro_torch.fleet.health", "repro_torch.fleet.controller"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -65,6 +68,7 @@ def test_port_imports_without_jax_or_repro():
     assert MESH_MODULES <= set(words[2:]), MESH_MODULES - set(words[2:])
     assert SERVICE_MODULES <= set(words[2:]), \
         SERVICE_MODULES - set(words[2:])
+    assert FLEET_MODULES <= set(words[2:]), FLEET_MODULES - set(words[2:])
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch):

@@ -38,6 +38,7 @@ from repro_torch.core import bucketed as tbucketed
 from repro_torch.core import ipop as tipop
 from repro_torch.distributed.mesh_engine import ProgramCache
 from repro_torch.fitness import bbob as tb
+from repro_torch.fleet import FaultPlan, FleetConfig
 from repro_torch.launch.mesh import make_campaign_mesh
 from repro_torch.service import (AdmissionQueue, CampaignRequest,
                                  CampaignServer, FitnessRegistry, QueueFull,
@@ -356,11 +357,25 @@ def test_zero_budget_job_completes_empty():
 
 
 def test_fleet_hooks_are_inert_and_fleet_raises():
+    """Without a controller the hook points stay empty and the status
+    reads every island alive; ``run_service_single(fleet=...)`` (ported:
+    it no longer raises) drains under a controller whose one island dies
+    at boundary 1 for a boundary, to the unsupervised result."""
     srv = make_server()
     assert srv.fleet is None and srv.down_islands == set()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserver.run_service_single(shifted_sphere, 4, 0, fleet=object(),
-                                   device="cpu")
+    srv.submit(CampaignRequest(dim=4, fid=1, budget=200, seed=0))
+    srv.step()
+    status = srv.statusz()["lanes"]
+    assert [isl["health"] for lane in status.values()
+            for isl in lane["islands"].values()] == ["alive"]
+    kw = dict(lam_start=8, kmax_exp=1, max_evals=400, device="cpu")
+    plain = tserver.run_service_single(shifted_sphere, 4, 0, **kw)
+    got = tserver.run_service_single(
+        shifted_sphere, 4, 0, fleet=FleetConfig(
+            snapshot_every=1, plan=FaultPlan.parse("0:1:1")), **kw)
+    assert got.total_fevals == plain.total_fevals > 0
+    np.testing.assert_allclose(got.best_f, plain.best_f, rtol=1e-12,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("menu", [(1, 2, 8), ()])

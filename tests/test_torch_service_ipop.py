@@ -4,15 +4,15 @@ service, and the signatures the port shares with the JAX package.
 * ``backend="service"`` gives ``backend="bucketed"``'s run bit for bit
   (f1, f2, f8; both sampling tiers), and JAX's ``service`` backend's on
   f1/f2: the ints exactly, the bests to 1e-10; ``total_gens`` raises;
-* ``fleet``: None runs on every backend, any other value raises
-  ``NotImplementedError`` naming ROADMAP.md queue A item 12 on the
-  segment-driven backends and ``ValueError`` on the others;
+* ``fleet``: a ``FleetConfig`` on the segment-driven backends gives
+  ``fleet=None``'s result, and raises ``ValueError`` on the others, as in
+  JAX;
 * ``drive_segments``, ``run_bucketed_single``, ``run_campaign_bucketed``
   and ``run_service_single`` take the parameters they share with JAX's in
   JAX's order with JAX's defaults, and return JAX's shapes;
 * ``python -m repro_torch.launch.serve_campaigns --device cpu`` serves,
   writes schema-valid metrics and a valid Chrome trace, resumes from its
-  snapshots, and refuses ``--fleet``.
+  snapshots, and serves a stream under ``--fleet --chaos-kills``.
 """
 import inspect
 import json
@@ -36,6 +36,8 @@ from repro.service import server as jserver
 from repro_torch.core import bucketed as tbucketed
 from repro_torch.core import ipop as tipop
 from repro_torch.fitness import bbob as tb
+from repro_torch.fleet import FleetConfig
+from repro_torch.fleet.controller import IslandSupervisor
 from repro_torch.obs import schema as tschema
 from repro_torch.obs import trace as ttrace
 from repro_torch.service import server as tserver
@@ -104,17 +106,21 @@ def test_service_backend_matches_jax(fid, monkeypatch):
 @pytest.mark.parametrize("backend", ["ladder", "bucketed", "hostloop",
                                      "mesh", "service"])
 def test_fleet(backend):
-    """``fleet=None`` runs every backend; a fleet raises."""
+    """``fleet=None`` runs every backend; ``fleet=FleetConfig()`` gives
+    the same result on the segment-driven ones and raises ``ValueError``
+    on the ladder and the host loop, as in JAX."""
     fn, _ = tb.make_fitness(1, 3, 1, device="cpu")
     kw = dict(lam_start=8, kmax_exp=1, max_evals=200, device="cpu")
     res = tipop.run_ipop(fn, 3, 0, backend=backend, fleet=None, **kw)
     assert res.total_fevals > 0
     if backend in ("bucketed", "mesh", "service"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tipop.run_ipop(fn, 3, 0, backend=backend, fleet=object(), **kw)
+        got = tipop.run_ipop(fn, 3, 0, backend=backend, fleet=FleetConfig(),
+                             **kw)
+        _same(got, res)
     else:
         with pytest.raises(ValueError, match="fleet"):
-            tipop.run_ipop(fn, 3, 0, backend=backend, fleet=object(), **kw)
+            tipop.run_ipop(fn, 3, 0, backend=backend, fleet=FleetConfig(),
+                           **kw)
 
 
 def test_service_backend_rejects_total_gens():
@@ -161,8 +167,15 @@ def test_return_shapes_match_jax():
     _c, trace, segments, walls = out
     assert sum(s["gens"] for s in segments) == trace.ran.shape[0]
     assert set(walls) == {s["bucket"] for s in segments}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tbucketed.drive_segments(eng, carry, dispatch, supervisor=object())
+    # a supervisor (ported) changes neither the returns nor the run
+    sup = IslandSupervisor(FleetConfig(snapshot_every=1))
+    out_s = tbucketed.drive_segments(eng, carry, dispatch, 10_000, 0,
+                                     supervisor=sup)
+    assert len(out_s) == 4
+    assert [(s["bucket"], s["gens"]) for s in out_s[2]] == \
+        [(s["bucket"], s["gens"]) for s in segments]
+    assert all(torch.equal(a, b) for a, b in zip(out_s[1], trace))
+    assert len(sup.snapshot_s) == len(segments) + 1
 
 
 def _cli(*args, cwd):
@@ -214,5 +227,21 @@ def test_cli_resumes_from_its_snapshot(tmp_path):
 
 
 def test_cli_refuses_fleet(tmp_path):
-    out = _cli("--synthetic", "1", "--fleet", cwd=tmp_path)
-    assert out.returncode != 0 and "item 12" in out.stderr
+    """``--fleet --chaos-kills`` (ported: no longer refused) serves a
+    synthetic stream to its end with a snapshot directory: island 1 dies
+    at boundary 2 for two boundaries, its rows move to island 0, and every
+    job ends done with the fault-free run's evaluations."""
+    args = ("--synthetic", "3", "--devices", "2", "--rows-per-island", "2",
+            "--snapshot-dir", "ck", "--snapshot-every", "1")
+    out = _cli(*args, "--out", "plain.json", cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    out = _cli(*args, "--fleet", "--chaos-kills", "1:2:2", "--out",
+               "fleet.json", "--postmortem-dir", "pm", cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert "fleet supervision on" in out.stdout
+    plain, fleet = (json.loads((tmp_path / f).read_text())
+                    for f in ("plain.json", "fleet.json"))
+    assert fleet["statuses"] == {"done": 3}
+    assert {r["job_id"]: r["fevals"] for r in fleet["results"]} == \
+        {r["job_id"]: r["fevals"] for r in plain["results"]}
+    assert os.listdir(tmp_path / "pm")          # the island's post-mortem
