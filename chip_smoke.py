@@ -7,12 +7,13 @@ plain PyTorch versions.
 Phases, one JSON line each with its seconds; any failed check raises
 (non-zero exit).  The whole script, the kernels' build included, is to
 finish within 1200 s on one H100; the cut depths below are made for that.
-After the build (phase 1) the phases run in five worker processes at
-once on the one card (``GROUPS``: a CMA-ES step is host-bound, so five
-of them share the card's idle time), each group's lines printed when all
-have ended, a failed worker stopping the others; then the kernels line
-(phase 5) runs alone.  ``--serial`` runs the groups one after another in
-one process instead (the phases' seconds then are their own).
+After the build (phase 1) the phases run in six worker processes at
+once on the one card (``GROUPS``: a CMA-ES step is host-bound, so the
+workers share the card's idle time; the sixth trains), each group's
+lines printed when all have ended, a failed worker stopping the others;
+then the kernels line (phase 5) runs alone.  ``--serial`` runs the
+groups one after another in one process instead (the phases' seconds
+then are their own).
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``src/repro_torch/kernels/csrc``;
@@ -66,7 +67,21 @@ one process instead (the phases' seconds then are their own).
    float32 (≤ 2e-5 of the largest |value|) and bfloat16 (element by
    element: |got − want| ≤ 2e-2·|want| + 1e-3 of the largest |value| of
    the element's row, its last axis; the phase's line gives each kernel's
-   worst bf16 element as a share of its limit).  At the campaign shapes
+   worst bf16 element as a share of its limit).  The backward kernels:
+   flash attention's (row 11) at qwen2-0.5b's training shape (4, 1024,
+   14, 2, 64), a ragged S = 129 with window 100, D = 32, D = 128 and a
+   non-causal call, each from the plain o and row statistic, after the
+   forward's statistic (the training launch, whose o must equal the
+   serving launch's bit for bit) is held against the plain one; the
+   WKV's (row 12) at rwkv6-3b's (4, 1024, 40, 64), D = 32 and 128, each
+   with an initial state and a final-state gradient and without either;
+   float32 within 1e-4 of each output's largest |value| (``LM_GRAD_TOL``),
+   bf16 outputs element by element as the forward's but with each row's
+   largest taken at least 1e-2 of the tensor's (``LM_GRAD_ROW_SHARE``:
+   the first query's dq is zero in exact arithmetic), the f32 outputs of
+   a bf16 call (dlogw, du, d state) as float32; each bit-identical on a
+   second launch into NaN-filled memory, its scratch (row sums; the
+   chunks' states) poisoned too.  At the campaign shapes
    (phases 9-9d stack their members on the slot axis): S = 16 members at
    (λ, n) = (12·2ᵏ, 40), k = 0…8, with the (1, 2) menu's real per-member
    coefficients (f1 and f2 × instances 1-4 × 2 runs, one member made
@@ -245,6 +260,36 @@ one process instead (the phases' seconds then are their own).
    replayed steps, recovery wall, lost-work evaluations and snapshot
    host ms a boundary; a ``fleet`` line gives the phase's span, from
    the first part's start to the last one's end;
+13a. ``descent``: the dense single descent, ``cmaes.run`` (the JAX
+   package's signature and key schedule), on f8 at n = 1000, default λ
+   (24), 32 generations: one sample (row 1) and one update launch (row 6)
+   a generation, λ evaluations each, ms a generation; then f1 at n = 8,
+   λ = 16 (μ = n: distinct eigenvalues), card against CPU to its stop:
+   ints equal, bests within 1e-9, the card's launches one of each a
+   generation;
+13b. ``train_qwen2``: ``Trainer.run`` on qwen2-0.5b at full width and
+   all 24 layers (``attn_impl="flash"``, bf16 compute, f32 parameters
+   and AdamW moments, remat off), 6 steps of 4 × 1024 tokens from
+   ``SyntheticTokens``, lr 3e-3 with 2 warmup steps, a checkpoint every
+   3 steps: every loss finite, the last two's mean below the first
+   two's, flash forward and backward launches each 24 a step; then a run
+   that stops after its step-3 checkpoint and its restart: the restored
+   parameters and moments equal the stopped run's bit for bit, and the
+   restart's losses at steps 4-6 (and the stopped run's at 1-3) within
+   2e-3 of the uninterrupted run's, relative (``RESUME_TOL``); ms a step,
+   tokens/s and peak memory;
+13c. ``train_rwkv6``: ``Trainer.run`` on rwkv6-3b at full width
+   (d_model 2560) cut to 4 of its 32 layers (all 32 with f32 AdamW hold
+   about 50 GB beside five other workers), remat on, 4 steps of 4 × 1024
+   tokens: losses finite, WKV backward launches 4 a step, forward 8 (each
+   layer's forward again in its backward); ms a step, tokens/s, peak
+   memory;
+13d. ``train_card_vs_cpu``: both smoke configs, head dims widened to 32
+   (the kernels' narrowest), float32, remat off, one ``grads_and_loss``
+   and one ``make_train_step`` step of 4 × 64 tokens on the card and on
+   the CPU from the same weights: the losses within 1e-5, every gradient
+   leaf within 1e-4 of its largest |value| (``TRAIN_CPU_TOL``), forward
+   and backward launches one each a layer a call;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -314,7 +359,14 @@ one process instead (the phases' seconds then are their own).
    bytes over 3.35 TB/s, or the unmasked work over 989 TFLOP/s for row 9's
    bf16 inputs and 67 for f32 and for row 10, which computes in f32
    whatever its inputs' type; one SDPA call is row 9's library time, row 10
-   has none).  Rows 8 and 10 also give ``tools/profile_update.py``'s
+   has none).  Rows 11 and 12 (the backward kernels, which replace no
+   TPU kernel: ``replaces`` names their JAX counterparts) at the training
+   paths' shapes, 13b's and 13c's in bf16 and 13d's in f32: bound the
+   bytes (inputs once, gradients once) or the operations (row 11: 10·D a
+   causal pair over 989 TFLOP/s for bf16 inputs, 67 for f32; row 12:
+   B·H·S·(10·D² + 160·D) at the f32 FMA rate), the library time one
+   autograd backward of SDPA (row 11; row 12 none).  Rows 8 and 10 also
+   give ``tools/profile_update.py``'s
    ``profile_call`` over 20 calls beside the wall-clock ms: each kernel's
    device µs per launch and the launches ``torch.profiler`` recorded, the
    CUDA-event ms and the host µs of a call.  Rows 1-4 at the bucketed
@@ -353,7 +405,7 @@ from repro_torch.core import (bucketed, cmaes, ipop, ladder,  # noqa: E402
                               prng, strategies)
 from repro_torch.core.params import CMAConfig, make_params  # noqa: E402
 from repro_torch.data.pipeline import SyntheticTokens  # noqa: E402
-from repro_torch.distributed import mesh_engine  # noqa: E402
+from repro_torch.distributed import mesh_engine, sharding  # noqa: E402
 from repro_torch.fitness import bbob  # noqa: E402
 from repro_torch.fitness.nn_fitness import make_nn_fitness  # noqa: E402
 from repro_torch.fleet import (CORRUPT, DELAY, KILL, FaultEvent,  # noqa: E402
@@ -429,6 +481,13 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:93"),
     "wkv6_forward": ("src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
                      "src/repro/kernels/rwkv6_wkv.py:76"),
+    # rows 11-12 replace no TPU kernel: their JAX counterparts are the
+    # flash path's custom VJP and autodiff of the WKV chunk scan
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/models/flash_xla.py:143"),
+    "wkv6_backward": ("src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
+                      "src/repro/models/rwkv6.py:109"),
 }
 #: the strategies paths: phase 6 (K-Distributed at full width), phase 6c
 #: (K-Replicated at n=1000) and the small runs of phase 6b
@@ -462,6 +521,58 @@ DECODE_TOL = {"qwen2-0.5b": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
               "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4}}
 NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
           max_evals=240)
+#: the backward kernels (rows 11-12) in phase 2: float32 within
+#: LM_GRAD_TOL of each output's largest |value| (the WKV's chunk
+#: exponentials reach e^80, so a last-place change of a cumulative
+#: log-decay moves an element by ~1e-5 of its size), bfloat16 outputs by
+#: ``lm_compare``'s element rule, the f32 outputs of a bf16 call (dlogw,
+#: du, d state) by the float32 bound; the shapes: qwen2-0.5b's training
+#: shape, a ragged S with a window, D = 32 and 128, a non-causal call;
+#: rwkv6-3b's training shape and D = 32 and 128, each with an initial
+#: state and a final-state gradient and without either
+LM_GRAD_TOL = 1e-4
+#: a bf16 gradient's rows are held to their own largest |value| as the
+#: forward's are, but to no less than LM_GRAD_ROW_SHARE of the tensor's:
+#: a row whose gradient is zero in exact arithmetic (the first query's dq:
+#: a softmax over one key is constant) holds only f32 rounding noise,
+#: which the two versions round differently
+LM_GRAD_ROW_SHARE = 1e-2
+FLASH_BWD_CHECKS = [dict(B=4, S=1024, H=14, Hk=2, D=64, window=0, causal=True),
+                    dict(B=2, S=129, H=4, Hk=2, D=64, window=100,
+                         causal=True),
+                    dict(B=1, S=256, H=4, Hk=4, D=32, window=0, causal=True),
+                    dict(B=1, S=384, H=8, Hk=1, D=128, window=0, causal=True),
+                    dict(B=1, S=256, H=4, Hk=2, D=64, window=0,
+                         causal=False)]
+WKV_BWD_CHECKS = [dict(B=4, S=1024, H=40, D=64), dict(B=1, S=64, H=2, D=32),
+                  dict(B=1, S=128, H=1, D=128)]
+#: phase 13a: the dense descent (``cmaes.run``) at n = 1000 on f8, default
+#: λ, 32 generations; and card against CPU on f1 at n = 8 with λ = 16
+#: (μ = 8 = n: with μ < n the first covariances have a repeated
+#: eigenvalue, whose eigenvectors cuSOLVER and LAPACK pick differently)
+DESCENT = dict(n=1000, gens=32, fid=8)
+DESCENT_SMALL = dict(n=8, lam=16, fid=1, tol=1e-9)
+#: phases 13b-13d: training.  qwen2-0.5b at full width and depth, bf16
+#: compute over f32 parameters and moments, flash attention, remat off (so
+#: each flash kernel launches once a layer a step), 6 steps of 4 × 1024
+#: tokens, lr 3e-3 with 2 warmup steps, a checkpoint every 3 steps; the
+#: resumed run's losses within RESUME_TOL of the uninterrupted run's,
+#: relative (the embedding's backward sums with atomics on the card).
+#: rwkv6-3b at full width (d_model 2560) cut to 4 of its 32 layers: all
+#: 32 with f32 AdamW hold about 50 GB (3.1 B parameters × 16 bytes of
+#: weights, gradients and two moments) beside five other workers on the
+#: card; remat on (each WKV forward launches twice a layer a step), 4
+#: steps.  Phase 13d: both smoke configs with their head dims widened to
+#: 32 (the kernels' narrowest), float32, 4 × 64 tokens, one step on the
+#: card and on the CPU from the same weights: the loss within 1e-5 and
+#: every gradient leaf within TRAIN_CPU_TOL of its largest |value|.
+TRAIN = dict(arch="qwen2-0.5b", B=4, S=1024, steps=6, ckpt_every=3,
+             lr=3e-3, warmup=2)
+TRAIN_RWKV = dict(arch="rwkv6-3b", B=4, S=1024, steps=4, layers=4,
+                  lr=3e-3, warmup=2)
+RESUME_TOL = 2e-3
+TRAIN_CPU = dict(B=4, S=64, head_dim=32, loss_tol=1e-5)
+TRAIN_CPU_TOL = 1e-4
 
 #: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
 #: tensor cores) for the float64 sample tiles (rows 1-4, 7) and the gram of
@@ -764,20 +875,22 @@ def compare(name, got, want, dtype, tol=None):
     return worst_abs, worst_rel
 
 
-def lm_compare(name, got, want, dtype):
-    """Rows 9-10 against their plain versions: (max abs error, max error
+def lm_compare(name, got, want, dtype, tensor_share=0.0):
+    """Rows 9-12 against their plain versions: (max abs error, max error
     over the largest |want|, worst element ratio).  float32: within
     ``LM_TOL`` of the largest |want| (``compare``; no ratio).  bfloat16:
     every element within ``LM_TOL·|want| + LM_ROW_FLOOR · (largest |want|
-    of its row)``, rows being the last axis; the ratio is the largest
-    |got − want| over that limit, at most 1."""
+    of its row)``, rows being the last axis, a row's largest taken at
+    least ``tensor_share`` of the tensor's largest |want|; the ratio is the
+    largest |got − want| over that limit, at most 1."""
     got, want = [g.float() for g in got], [w.float() for w in want]
     if dtype == torch.float32:
         return (*compare(name, got, want, dtype, LM_TOL[dtype]), None)
     worst = 0.0
     for g, w in zip(got, want):
-        lim = (LM_TOL[dtype] * w.abs()
-               + LM_ROW_FLOOR * w.abs().amax(dim=-1, keepdim=True))
+        row = torch.clamp(w.abs().amax(dim=-1, keepdim=True),
+                          min=tensor_share * float(w.abs().max()))
+        lim = LM_TOL[dtype] * w.abs() + LM_ROW_FLOOR * row
         worst = max(worst, float(((g - w).abs() / lim.clamp_min(1e-30))
                                  .max()))
     if not worst <= 1.0:
@@ -1069,10 +1182,12 @@ def phase_kernels(dev):
     rows += campaign_rows
     rows += strategy_kernel_checks(dev, errs)
     rows += lm_kernel_checks(dev, errs)
+    rows += lm_grad_checks(dev, errs)
     bf16_worst = {name: max(r["max_elem_ratio"] for r in rows
                             if r["kernel"] == name
                             and r["dtype"] == str(torch.bfloat16))
-                  for name in ("flash_attention", "wkv6_forward")}
+                  for name in ("flash_attention", "wkv6_forward",
+                               "flash_attention_bwd", "wkv6_backward")}
     emit({"phase": "kernels_vs_plain", "checks": rows,
           "update_plan_campaign_n1000": wide_plan,
           "bf16_worst_share_of_limit": bf16_worst,
@@ -3233,7 +3348,8 @@ CSRC_KERNELS = ("tile_kernel", "stream_kernel", "eval_reduce_kernel",
                 "z_rng_kernel", "gram_kernel", "vec_small_kernel",
                 "t_kernel", "whiten_kernel", "paths_kernel",
                 "epilogue_kernel", "rank_mu_epilogue", "flash_f32_kernel",
-                "flash_bf16_kernel", "wkv6_kernel")
+                "flash_bf16_kernel", "wkv6_kernel", "flash_bwd_dq_kernel",
+                "flash_bwd_dkv_kernel", "wkv_bwd_kernel", "du_reduce_kernel")
 #: one of them in a profiled kernel's name, demangled (a whole word) or
 #: mangled (after its length)
 CSRC_KERNEL_NAME = re.compile("|".join(
@@ -3598,6 +3714,86 @@ def lm_kernel_checks(dev, errs):
     return rows
 
 
+def lm_grad_checks(dev, errs):
+    """Rows 11 and 12 against their plain versions, and row 9's training
+    statistic (module docstring, phase 2); records the float32 max abs
+    errors in ``errs``."""
+    rows = []
+
+    def record(name, e, dtype, shape, **kw):
+        if dtype == torch.float32:
+            errs[name] = max(errs[name], e[0])
+        rows.append({"kernel": name, "shape": shape, "dtype": str(dtype),
+                     "max_abs_err": e[0], "max_rel_err": e[1],
+                     "max_elem_ratio": e[2], "repeat_bit_identical": True,
+                     **kw})
+
+    def grads_compare(name, got, want):
+        """Each output in its own type: bf16 by ``lm_compare``'s element
+        rule, f32 within LM_GRAD_TOL of its largest |value|."""
+        es = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.dtype == torch.bfloat16:
+                es.append(lm_compare(f"{name}[{i}]", (g,), (w,), g.dtype,
+                                     LM_GRAD_ROW_SHARE))
+            else:
+                es.append((*compare(f"{name}[{i}]", (g.float(),),
+                                    (w.float(),), torch.float32,
+                                    LM_GRAD_TOL), None))
+        ratios = [e[2] for e in es if e[2] is not None]
+        return (max(e[0] for e in es), max(e[1] for e in es),
+                max(ratios) if ratios else None)
+
+    for c in FLASH_BWD_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = [c[k] for k in ("B", "S", "H", "Hk", "D")]
+            q, k, v = flash_inputs(*shape, dtype, dev, seed=c["S"] + 1)
+            do = flash_inputs(c["B"], c["S"], c["H"], 1, c["D"], dtype, dev,
+                              seed=c["S"] + 2)[0]
+            kw = dict(causal=c["causal"], window=c["window"])
+            # the training forward: the serving call's o, bit for bit, and
+            # the row statistic against the plain one
+            o, lse = flash_attention.flash_attention_stats(q, k, v, **kw)
+            same_bits("flash_attention (with stats)", (o,),
+                      (flash_attention.flash_attention(q, k, v, **kw),))
+            o_ref = ref.flash_attention(q, k, v, **kw)
+            lse_ref = ref.flash_attention_lse(q, k, **kw)
+            e_lse = compare("flash_attention lse", (lse,), (lse_ref,),
+                            torch.float32, LM_TOL[torch.float32])
+
+            def bwd():
+                return flash_attention.flash_attention_bwd(
+                    q, k, v, o_ref, lse_ref, do, **kw)
+            got = bwd()
+            want = ref.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+            e = grads_compare("flash_attention_bwd", got, want)
+            delta = c["B"] * c["S"] * c["H"] * 4 // q.element_size()
+            repeat_on_poison("flash_attention_bwd", bwd, got, scratch=delta)
+            record("flash_attention_bwd", e, dtype, shape, **kw,
+                   lse_max_rel_err=e_lse[1])
+    for c in WKV_BWD_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            shape = [c[k] for k in ("B", "S", "H", "D")]
+            a = wkv_inputs(*shape, dtype, dev, seed=c["S"] + 3)
+            b = wkv_inputs(*shape, dtype, dev, seed=c["S"] + 4)
+            args = [a[k] for k in ("r", "k", "v", "logw", "u")]
+            do, ds = b["r"], 0.2 * b["state"]
+            B, S, H, D = shape
+            states = B * H * (S // ref.WKV_CHUNK) * D * D * 4 \
+                // do.element_size()
+            for state, dstate in ((a["state"], ds), (None, None)):
+                def bwd():
+                    return rwkv6_wkv.wkv6_backward(*args, state, do, dstate)
+                got = bwd()
+                want = ref.wkv_backward(*args, state, do, dstate)
+                e = grads_compare("wkv6_backward", got, want)
+                repeat_on_poison("wkv6_backward", bwd, got, scratch=states)
+                record("wkv6_backward", e, dtype, shape,
+                       initial_state=state is not None)
+    torch.cuda.synchronize()
+    return rows
+
+
 def profiled(fn, top=8):
     """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA): its host
     time (slowed by the profiler), the device's busy time (the sum of every
@@ -3846,6 +4042,269 @@ def phase_nn_fitness(dev):
                           n=space.dim)
 
 
+# ---------------------------------------------------------------------------
+# phases 13a-13d: the dense descent and training
+# ---------------------------------------------------------------------------
+
+def default_lam(n: int) -> int:
+    """Hansen's default population, 4 + ⌊3 ln n⌋."""
+    return 4 + int(3 * np.log(n))
+
+
+def phase_descent(dev):
+    """``cmaes.run`` on the card (module docstring, phase 13a): f8 at
+    n = 1000, default λ, 32 generations (rows 1 and 6 once a generation);
+    then f1 at n = 8, λ = 16, card against CPU.  Returns the n = 1000
+    run's launches and the card-vs-CPU run's."""
+    from repro_torch.core import stopping
+    c, sm = DESCENT, DESCENT_SMALL
+    n, lam = c["n"], default_lam(c["n"])
+    cfg = CMAConfig(n=n, lam=lam)
+    fn, inst = bbob.make_fitness(c["fid"], n, 1, device=dev)
+    x0 = torch.zeros(n, dtype=torch.float64)
+    cmaes.run(cfg, make_params(cfg), fn, 1, x0, 2.0, max_gens=2,
+              device=dev)                                   # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st = cmaes.run(cfg, make_params(cfg), fn, 7, x0, 2.0,
+                   max_gens=c["gens"], device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    gens = int(st.gen)
+    if not (gens == c["gens"] and launches["cma_gen_sample"] == gens
+            and launches["cma_gen_update"] == gens
+            and sum(launches.values()) == 2 * gens
+            and int(st.fevals) == gens * lam
+            and np.isfinite(float(st.best_f))):
+        raise AssertionError(f"descent n={n}: {gens} generations, fevals "
+                             f"{int(st.fevals)}, launches {launches}")
+    # card against CPU
+    cfg8 = CMAConfig(n=sm["n"], lam=sm["lam"])
+    x8 = np.linspace(-2.0, 2.0, sm["n"])
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        f8, i8 = bbob.make_fitness(sm["fid"], sm["n"], 1, device=d)
+        _build.reset_launches()
+        runs.append((cmaes.run(cfg8, make_params(cfg8), f8, 11, x8, 1.0,
+                               device=d), dict(_build.LAUNCHES)))
+    (card, l8), (cpu, _) = runs
+    ints = {f: (int(getattr(card, f)), int(getattr(cpu, f)))
+            for f in ("gen", "fevals", "stop_reason", "last_eigen_gen",
+                      "hist_count")}
+    err, _ = f_err(float(card.best_f), float(cpu.best_f), float(i8.f_opt))
+    if (any(a != b for a, b in ints.values()) or not err <= sm["tol"]
+            or not bool(card.stop)
+            or l8["cma_gen_sample"] != ints["gen"][0]
+            or l8["cma_gen_update"] != ints["gen"][0]):
+        raise AssertionError(f"descent card vs CPU: ints {ints}, best err "
+                             f"{err}, launches {l8}")
+    emit({"phase": "descent", "n": n, "lam": lam, "fid": c["fid"],
+          "gens": gens, "ms_per_gen": wall / gens * 1e3,
+          "best_minus_fopt": float(st.best_f) - float(inst.f_opt),
+          "launches": launches,
+          "card_vs_cpu": {**sm, "ints": ints, "best_err": err,
+                          "stop": stopping.reason_to_str(
+                              ints["stop_reason"][0]),
+                          "launches": l8}})
+    return launches, l8
+
+
+def _trainer(cfg, c, ckpt_dir, steps, ckpt_every, dev):
+    from repro_torch.train import optimizer, train_step, trainer
+    tc = trainer.TrainerConfig(
+        total_steps=steps, ckpt_every=ckpt_every, ckpt_dir=str(ckpt_dir),
+        log_every=1, train=train_step.TrainConfig(
+            adamw=optimizer.AdamWConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                                        total_steps=c["steps"])))
+    return trainer.Trainer(cfg, tc, seq_len=c["S"], global_batch=c["B"],
+                           log_fn=lambda _m: None, device=dev)
+
+
+def train_run(cfg, c, ckpt_dir, dev, steps=None, ckpt_every=None,
+              keep=False):
+    """A ``Trainer.run`` (resuming from ``ckpt_dir`` if it holds a step):
+    (trainer, its final (params, opt) if ``keep``, wall s, launches, peak
+    GB, each step's wall s, the step ending in a synchronize)."""
+    t = _trainer(cfg, c, ckpt_dir, steps or c["steps"],
+                 ckpt_every or c.get("ckpt_every", 10 ** 6), dev)
+    stamps, inner = [], t.step_fn
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        float(out[2]["loss"])
+        stamps.append(time.perf_counter() - t0)
+        return out
+    t.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = t.run(resume=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (t, out if keep else None, wall, dict(_build.LAUNCHES),
+            torch.cuda.max_memory_allocated() / 1e9, stamps)
+
+
+def _losses(t):
+    return [h["loss"] for h in t.history]
+
+
+def leaves_equal(a, b) -> bool:
+    """Two tensor trees bit for bit (dtype, shape and values)."""
+    la, lb = sharding.leaves(a), sharding.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_train_qwen2(dev):
+    """``Trainer.run`` on qwen2-0.5b at full width and depth (module
+    docstring, phase 13b), then the resume check.  Returns the
+    uninterrupted run's launches."""
+    c = TRAIN
+    cfg = configs.override(configs.get_config(c["arch"]), attn_impl="flash",
+                           remat=False)
+    root = Path(tempfile.mkdtemp(prefix="chip_train_"))
+    try:
+        t, _, wall, launches, peak, stamps = train_run(cfg, c, root / "a",
+                                                       dev)
+        losses = _losses(t)
+        n = c["steps"]
+        if not (len(losses) == n and all(np.isfinite(losses))
+                and np.mean(losses[-2:]) < np.mean(losses[:2])):
+            raise AssertionError(f"qwen2 training losses {losses}")
+        want = cfg.n_layers * n
+        if (launches["flash_attention"] != want
+                or launches["flash_attention_bwd"] != want):
+            raise AssertionError(f"qwen2 training: {launches} for {n} steps "
+                                 f"of {cfg.n_layers} layers")
+        # a run that stops after its step-3 checkpoint, then the restart
+        cut = c["ckpt_every"]
+        tb, saved, *_ = train_run(cfg, c, root / "b", dev, steps=cut,
+                                  keep=True)
+        tr = _trainer(cfg, c, root / "b", c["steps"], c["ckpt_every"], dev)
+        plain_restore, checked = tr.try_restore, []
+
+        def restore_and_check(params, opt):
+            rp, ro, rstep = plain_restore(params, opt)
+            pb, ob = saved
+            checked.append(rstep == cut and leaves_equal(rp, pb)
+                           and leaves_equal((ro.mu, ro.nu, ro.step),
+                                            (ob.mu, ob.nu, ob.step)))
+            saved.clear()
+            return rp, ro, rstep
+        saved = list(saved)
+        tr.try_restore = restore_and_check
+        tr.run(resume=True)
+        bit_equal = checked == [True]
+        resumed = _losses(tr)
+        rel = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[cut:])]
+        first = [abs(a - b) / abs(b) for a, b in zip(_losses(tb),
+                                                     losses[:cut])]
+        if not (bit_equal and len(resumed) == n - cut
+                and max(rel + first) <= RESUME_TOL):
+            raise AssertionError(f"qwen2 resume: restored bit-equal "
+                                 f"{bit_equal}, losses {resumed} against "
+                                 f"{losses[cut:]} (rel {rel}, first {first})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    step_s = float(np.mean(stamps[1:]))
+    emit({"phase": "train_qwen2", **c, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "remat": cfg.remat,
+          "losses": losses, "resumed_losses": resumed,
+          "resume_rel_err": max(rel), "restart_first_rel_err": max(first),
+          "restored_bit_equal": bit_equal, "step_s": stamps,
+          "ms_per_step": step_s * 1e3,
+          "tokens_per_s": c["B"] * c["S"] / step_s,
+          "wall_s": wall, "peak_gb": peak, "launches": launches})
+    return launches
+
+
+def phase_train_rwkv6(dev):
+    """``Trainer.run`` on rwkv6-3b at full width, 4 layers, remat on
+    (module docstring, phase 13c).  Returns its launches."""
+    c = TRAIN_RWKV
+    cfg = configs.override(configs.get_config(c["arch"]),
+                           n_layers=c["layers"])
+    root = Path(tempfile.mkdtemp(prefix="chip_train_"))
+    try:
+        t, _, wall, launches, peak, stamps = train_run(cfg, c, root / "a",
+                                                       dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = _losses(t)
+    n = c["steps"]
+    if not (len(losses) == n and all(np.isfinite(losses))):
+        raise AssertionError(f"rwkv6 training losses {losses}")
+    # remat: the forward kernel runs again in each layer's backward
+    if (launches["wkv6_backward"] != cfg.n_layers * n
+            or launches["wkv6_forward"] != 2 * cfg.n_layers * n):
+        raise AssertionError(f"rwkv6 training: {launches} for {n} steps of "
+                             f"{cfg.n_layers} layers")
+    step_s = float(np.mean(stamps[1:]))
+    emit({"phase": "train_rwkv6", **c, "d_model": cfg.d_model,
+          "remat": cfg.remat, "losses": losses, "step_s": stamps,
+          "ms_per_step": step_s * 1e3,
+          "tokens_per_s": c["B"] * c["S"] / step_s, "wall_s": wall,
+          "peak_gb": peak, "launches": launches})
+    return launches
+
+
+def phase_train_card_vs_cpu(dev):
+    """One ``make_train_step`` step of each smoke config (head dims 32) in
+    float32 on the card and on the CPU from the same weights (module
+    docstring, phase 13d).  Returns the card's launches."""
+    from repro_torch.train import optimizer, train_step
+    c = TRAIN_CPU
+    out, all_launches = {}, {}
+    for arch in SERVE:
+        cfg = configs.override(configs.smoke_config(arch), dtype="float32",
+                               attn_impl="flash", remat=False,
+                               head_dim=c["head_dim"],
+                               rwkv_head_dim=c["head_dim"])
+        p_card = lm.init_params(cfg, 5, dev)
+        batch = SyntheticTokens(cfg, seq_len=c["S"], global_batch=c["B"],
+                                seed=2).batch_at(0)
+        step = train_step.make_train_step(cfg, train_step.TrainConfig(
+            adamw=optimizer.AdamWConfig(lr=3e-3, warmup_steps=1)))
+        got = {}
+        for d, p in ((dev, p_card), ("cpu", lm.tree_to(p_card, "cpu"))):
+            b = {k: torch.from_numpy(np.ascontiguousarray(v)).to(d)
+                 for k, v in batch.items()}
+            _build.reset_launches()
+            grads, loss, _ = train_step.grads_and_loss(cfg, p, b)
+            _, _, m = step(p, optimizer.init_opt_state(p), b)
+            got[str(d)] = (float(loss), float(m["loss"]),
+                           lm.tree_to(grads, "cpu"), dict(_build.LAUNCHES))
+        (l_a, m_a, g_a, launches), (l_b, m_b, g_b, _) = (
+            got[str(dev)], got["cpu"])
+        worst = 0.0
+        for x, y in zip(sharding.leaves(g_a), sharding.leaves(g_b)):
+            worst = max(worst, float((x - y).abs().max())
+                        / max(float(y.abs().max()), 1e-30))
+        loss_err = max(abs(l_a - l_b), abs(m_a - m_b)) / abs(l_b)
+        kernel = SERVE[arch]["kernel"]
+        bwd = {"flash_attention": "flash_attention_bwd",
+               "wkv6_forward": "wkv6_backward"}[kernel]
+        # grads_and_loss and the step: one forward and backward each
+        if (loss_err > c["loss_tol"] or worst > TRAIN_CPU_TOL
+                or launches[kernel] != 2 * cfg.n_layers
+                or launches[bwd] != 2 * cfg.n_layers):
+            raise AssertionError(f"train card vs CPU {arch}: loss err "
+                                 f"{loss_err}, grad err {worst}, launches "
+                                 f"{launches}")
+        out[arch] = {"loss": l_b, "loss_rel_err": loss_err,
+                     "grad_max_rel_err": worst, "launches": launches}
+        for k, v in launches.items():
+            all_launches[k] = all_launches.get(k, 0) + v
+    emit({"phase": "train_card_vs_cpu", **c, "grad_tol": TRAIN_CPU_TOL,
+          "archs": out})
+    return all_launches
+
+
 def lm_bound(flops, nbytes, dtype):
     t_ops = flops / LM_PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
@@ -3909,17 +4368,106 @@ def lm_kernel_rows(dev, errs, launches):
             "serve_qwen2": flash_work(SERVE["qwen2-0.5b"]["B"],
                                       SERVE["qwen2-0.5b"]["S"], *qh, bf16),
             "nn_fitness_qwen2": flash_work(NN["B"], NN["S"], *qh, bf16),
-            "serve_card_vs_cpu": flash_work(c["B"], c["S"], *qh, f32)},
+            "serve_card_vs_cpu": flash_work(c["B"], c["S"], *qh, f32),
+            "train_qwen2": flash_work(TRAIN["B"], TRAIN["S"], *qh, bf16)},
         "wkv6_forward": {
             "serve_rwkv6": wkv_work(SERVE["rwkv6-3b"]["B"],
                                     SERVE["rwkv6-3b"]["S"], *rh, bf16),
-            "serve_card_vs_cpu": wkv_work(c["B"], s_pad, *rh, f32)}}
+            "serve_card_vs_cpu": wkv_work(c["B"], s_pad, *rh, f32),
+            "train_rwkv6": wkv_work(TRAIN_RWKV["B"], TRAIN_RWKV["S"], *rh,
+                                    bf16)}}
     rows = []
     for name, paths in work.items():
         for p, w in paths.items():
             w["launches"] = launches[p][name]
         top = paths["serve_qwen2" if name == "flash_attention"
                     else "serve_rwkv6"]
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+                     "launches": sum(launches[p][name] for p in launches),
+                     "max_abs_err": errs[name],
+                     **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+                     "paths": paths})
+    return rows
+
+
+def train_kernel_rows(dev, errs, launches):
+    """Rows 11 and 12 of the ``kernels`` line: per training path its
+    launches and, at the path's shape and dtype, the backward kernel's,
+    the plain version's and (row 11) the autograd backward of one SDPA
+    call's times, and the bound (module docstring, phase 5)."""
+    def flash_bwd_work(B, S, H, Hk, D, dtype):
+        q, k, v = flash_inputs(B, S, H, Hk, D, dtype, dev)
+        do = flash_inputs(B, S, H, 1, D, dtype, dev, seed=1)[0]
+        o, lse = flash_attention.flash_attention_stats(q, k, v)
+        pairs = S * (S + 1) // 2                   # unmasked (q, k), causal
+        # s, dp, dq, dk and dv: 10 D operations an unmasked pair; q, o,
+        # do, dq (B S H D), k, v, dk, dv (B S Hk D) and lse (B S H, f32)
+        b_ms, b_by = lm_bound(10.0 * B * H * pairs * D,
+                              q.element_size() * B * S * D * (4 * H + 4 * Hk)
+                              + 4 * B * S * H, dtype)
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
+                      for a in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2).contiguous()
+        return {"shape": [B, S, H, Hk, D], "dtype": str(dtype),
+                "ms": time_ms(lambda: flash_attention.flash_attention_bwd(
+                    q, k, v, o, lse, do)),
+                "plain_ms": time_ms(lambda: ref.flash_attention_bwd(
+                    q, k, v, o, lse, do), reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True))}
+
+    def wkv_bwd_work(B, S, H, D, dtype):
+        a = wkv_inputs(B, S, H, D, dtype, dev)
+        args = [a[k] for k in ("r", "k", "v", "logw", "u")]
+        do = wkv_inputs(B, S, H, D, dtype, dev, seed=1)["r"]
+        n = B * S * H * D
+        e = a["r"].element_size()
+        # r, k, v, do and dr, dk, dv in their type; logw and dlogw f32; u
+        # and du; the chunks' states are recomputed, not read
+        nbytes = 7 * e * n + 2 * 4 * n + 2 * 4 * H * D
+        # the state recurrence again (2 D² a token), then per token the
+        # S and dS products of dqt, dko, dv and dS (8 D²) and the chunk's
+        # pair terms (A, dA, dqt, dki, dv: 10 · 16 D)
+        flops = B * H * S * (10.0 * D * D + 160.0 * D)
+        b_ms, b_by = lm_bound(flops, nbytes, torch.float32)
+
+        def kern():
+            return rwkv6_wkv.wkv6_backward(*args, None, do,
+                                           need_dstate=False)
+        return {"shape": [B, S, H, D], "dtype": str(dtype),
+                "ms": time_ms(kern),
+                "plain_ms": time_ms(lambda: ref.wkv_backward(
+                    *args, None, do), reps=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "profile": profile_update.profile_call(kern, 10)}
+
+    q2 = configs.get_config("qwen2-0.5b")
+    rw = configs.get_config("rwkv6-3b")
+    qh = (q2.n_heads, q2.n_kv_heads, q2.head_dim)
+    rh = (rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim)
+    c = TRAIN_CPU
+    bf16, f32 = torch.bfloat16, torch.float32
+    work = {
+        "flash_attention_bwd": {
+            "train_qwen2": flash_bwd_work(TRAIN["B"], TRAIN["S"], *qh, bf16),
+            "train_card_vs_cpu": flash_bwd_work(c["B"], c["S"], 4, 2,
+                                                c["head_dim"], f32)},
+        "wkv6_backward": {
+            "train_rwkv6": wkv_bwd_work(TRAIN_RWKV["B"], TRAIN_RWKV["S"],
+                                        *rh, bf16),
+            "train_card_vs_cpu": wkv_bwd_work(c["B"], c["S"], 2,
+                                              c["head_dim"], f32)}}
+    rows = []
+    for name, paths in work.items():
+        for p, w in paths.items():
+            w["launches"] = launches[p][name]
+        top = paths["train_qwen2" if name == "flash_attention_bwd"
+                    else "train_rwkv6"]
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[name][0], "replaces": SOURCES[name][1],
                      "launches": sum(launches[p][name] for p in launches),
@@ -4057,6 +4605,7 @@ def phase_table(dev, errs, launches):
             "paths": paths})
     rows += strategy_kernel_rows(dev, errs, launches)
     rows += lm_kernel_rows(dev, errs, launches)
+    rows += train_kernel_rows(dev, errs, launches)
     # the least ms of each resource behind rows 1-6's bounds (bound_parts)
     emit({"phase": "bound_parts_ms", "sm_clock_mhz": sm_clock_hz() / 1e6,
           "parts": parts})
@@ -4193,15 +4742,33 @@ def group_lm(dev, st):
     P["nn_fitness_qwen2"] = (shape, None)
 
 
+def group_train(dev, st):
+    """Phases 13a-13d: the dense descent and training."""
+    L, P = st["launches"], st["paths"]
+    L["descent_f8_n1000"], L["descent_card_vs_cpu"] = run_phase(
+        st, "13a_descent", phase_descent, dev)
+    P["descent_f8_n1000"] = (dict(S=1, lam=default_lam(DESCENT["n"]),
+                                  n=DESCENT["n"]), None)
+    L["train_qwen2"] = run_phase(st, "13b_train_qwen2", phase_train_qwen2,
+                                 dev)
+    torch.cuda.empty_cache()
+    L["train_rwkv6"] = run_phase(st, "13c_train_rwkv6", phase_train_rwkv6,
+                                 dev)
+    torch.cuda.empty_cache()
+    L["train_card_vs_cpu"] = run_phase(st, "13d_train_card_vs_cpu",
+                                       phase_train_card_vs_cpu, dev)
+
+
 #: the phases between the build (phase 1) and the kernels line (phase 5),
 #: in five groups of about equal time (the phases' seconds with the five
 #: at once on an H100 80GB HBM3 at 700.00 W: 280-330 s a group, from 160-
-#: 190 s alone).  Each group runs in a worker process of its own, all at
-#: once: a CMA-ES step is host-bound (the card is busy a third of it), so
-#: the workers share the card's idle time.  Phase 12's five parts come
-#: first, each in its own worker.
+#: 190 s alone) and a sixth that trains (13a-13d).  Each group runs in a
+#: worker process of its own, all at once: a CMA-ES step is host-bound
+#: (the card is busy a third of it), so the workers share the card's idle
+#: time.  Phase 12's five parts come first, each in its own worker.
 GROUPS = {"engines": group_engines, "campaigns": group_campaigns,
-          "mesh": group_mesh, "service": group_service, "lm": group_lm}
+          "mesh": group_mesh, "service": group_service, "lm": group_lm,
+          "train": group_train}
 
 
 def new_state():

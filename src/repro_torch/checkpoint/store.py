@@ -174,7 +174,9 @@ def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
               else dt if isinstance(dt, torch.dtype) else _torch_dtype(dt))
         where = device if device is not None else (
             t.device if isinstance(t, torch.Tensor) else "cpu")
-        flat[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+        # ascontiguousarray makes a 0-d leaf 1-d: reshape it back
+        flat[k] = torch.from_numpy(
+            np.ascontiguousarray(arr).reshape(arr.shape)).to(
             device=where, dtype=dt)
     return _unflatten_into(template, flat)
 

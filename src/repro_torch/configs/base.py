@@ -51,7 +51,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     logits_chunk: int = 2048        # CE loss sequence-chunk (never full logits)
     q_chunk: int = 1024             # attention query chunk
-    remat: bool = True              # no backward in the port: ignored
+    remat: bool = True              # checkpoint each layer and CE chunk
     # attention implementation: "naive" (query-chunked, materialised probs)
     # or "flash" (the flash attention kernel, kernels/flash_attention.py)
     attn_impl: str = "naive"

@@ -6,7 +6,8 @@ every leaf passed as a numpy array (``np.asarray``
 of each leaf), become the port's tensors on a given device; ``to_numpy``
 goes back.  Fields are matched by name.  uint32 arrays (PRNG keys) become
 the port's int64-held words.  The LM's parameter and cache trees (nested
-dicts) go across with ``lm_params`` and ``lm_cache``.  Nothing here imports
+dicts) go across with ``lm_params`` and ``lm_cache``, its AdamW state with
+``opt_state``.  Nothing here imports
 the JAX package.
 """
 from __future__ import annotations
@@ -92,6 +93,15 @@ def lm_params(cfg, tree, device) -> dict:
     from repro_torch.models import lm
     lm.check_supported(cfg)
     return _tree(tree, device)
+
+
+def opt_state(tree, device):
+    """The JAX package's ``OptState(mu, nu, step)`` (numpy leaves) as the
+    port's ``train.optimizer.OptState``: moments as f32 tensors in the same
+    nested dicts, ``step`` a 0-d int32 tensor."""
+    from repro_torch.train.optimizer import OptState
+    return OptState(mu=_tree(tree.mu, device), nu=_tree(tree.nu, device),
+                    step=tensor(tree.step, device).to(torch.int32))
 
 
 def lm_cache(tree, device) -> dict:

@@ -14,6 +14,10 @@ contraction, C′ mirrored from its upper triangle) and the moments op soup
 of ``impl="eager_unfused"`` (``compute_moments`` + ``update_from_moments``:
 separate gram, combine and ``0.5·(C + Cᵀ)``).
 
+The dense single descent (``init_dense_state``, ``step``, ``run``) keeps
+the JAX package's signatures and shapes (no slot axis) and runs on the
+slot-stacked functions with S = 1.
+
 Port convention for the eigendecomposition: ``eigen_decompose`` makes the
 largest-magnitude entry of every eigenvector positive (ties go to the first
 such entry), so B does not depend on LAPACK's or cuSOLVER's sign choice and
@@ -26,8 +30,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import prng, stopping
+from repro_torch.core.device import resolve_device
 from repro_torch.core.eval_dispatch import Groups
-from repro_torch.core.params import CMAConfig, CMAParams
+from repro_torch.core.params import CMAConfig, CMAParams, broadcast_params
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -52,17 +57,20 @@ class CMAState(NamedTuple):
     restarts: torch.Tensor      # (S,) int32
 
 
-def init_state(cfg: CMAConfig, x0: torch.Tensor) -> CMAState:
-    """Fresh states for the slots of ``x0`` (S, n), with σ = ``cfg.sigma0``."""
+def init_state(cfg: CMAConfig, x0: torch.Tensor, sigma0=None) -> CMAState:
+    """Fresh states for the slots of ``x0`` (S, n), with σ = ``sigma0``
+    (``cfg.sigma0`` when None)."""
     S, n = x0.shape
     dt, dev = cfg.tdtype, x0.device
+    sigma0 = cfg.sigma0 if sigma0 is None else sigma0
     eye = torch.eye(n, dtype=dt, device=dev).expand(S, n, n)
 
     def i32(v):
         return torch.full((S,), v, dtype=torch.int32, device=dev)
 
     return CMAState(
-        m=x0.to(dt), sigma=torch.full((S,), cfg.sigma0, dtype=dt, device=dev),
+        m=x0.to(dt),
+        sigma=torch.as_tensor(sigma0, dtype=dt, device=dev).expand(S).clone(),
         C=eye.clone(), B=eye.clone(),
         D=torch.ones((S, n), dtype=dt, device=dev),
         p_sigma=torch.zeros((S, n), dtype=dt, device=dev),
@@ -335,3 +343,84 @@ def masked_update_from_gram(cfg: CMAConfig, params: CMAParams,
     new = _finish_update(cfg, params, state, f_sorted, x_best, n_evals,
                          C_new, p_sigma_new, p_c_new, y_w, eigen)
     return tree_select(state.stop, state, new)
+
+
+# ---------------------------------------------------------------------------
+# Dense single-descent step + run loop (paper Alg. 1)
+# ---------------------------------------------------------------------------
+
+def _stack1(tree):
+    """A dense NamedTuple as the slot-stacked one with S = 1 (views)."""
+    return type(tree)(*(x[None] for x in tree))
+
+
+def _unstack1(tree):
+    return type(tree)(*(x[0] for x in tree))
+
+
+def init_dense_state(cfg: CMAConfig, key, x0, sigma0=None) -> CMAState:
+    """The JAX package's ``init_state(cfg, key, x0, sigma0)``: one descent's
+    state in its dense shapes (m (n,), sigma (), C (n, n), ...), σ =
+    ``sigma0`` (``cfg.sigma0`` when None), on ``x0``'s device.  ``key`` is
+    not used, as there."""
+    x0 = torch.as_tensor(x0)
+    return _unstack1(init_state(cfg, x0[None], sigma0))
+
+
+def _dense_step(cfg: CMAConfig, params: CMAParams, state: CMAState,
+                fitness_fn, key: torch.Tensor, lam: int,
+                impl: str) -> CMAState:
+    p1 = broadcast_params(params, 1)
+    st = _stack1(state)
+    if kops.use_fused(impl):
+        z = sample_z(key[None], lam, cfg.n, state.m.dtype)
+        y, x = kops.gen_sample(st.m, st.sigma, st.B, st.D, z, impl=impl)
+        f = fitness_fn(x[0])
+        new = masked_update_fused(cfg, p1, st, y, f[None], x, impl=impl)
+    else:
+        y, x = sample_population(st, key[None], lam, impl=impl)
+        f = fitness_fn(x[0])
+        mom = compute_moments(y, f[None], x, p1, cfg.lam_max, impl=impl)
+        new = masked_update(cfg, p1, st, mom, impl=impl)
+    return _unstack1(new)
+
+
+def step(cfg: CMAConfig, params: CMAParams, state: CMAState, fitness_fn,
+         key: torch.Tensor, impl: str = "auto") -> CMAState:
+    """One generation of one descent (the JAX package's ``cmaes.step``,
+    Alg. 1 lines 4–8): dense ``state`` and ``params`` (``make_params``), a
+    (2,) key, ``fitness_fn`` mapping X (λ, n) to (λ,).  The fused path
+    draws the row-keyed Z, samples with ``ops.gen_sample`` and updates
+    with ``ops.gen_update`` (on the card under a kernel tier: one launch of
+    each, rows 1 and 6); ``"eager_unfused"`` runs the moments op soup.  A
+    stopped descent is returned unchanged."""
+    return _dense_step(cfg, params, state, fitness_fn, key,
+                       int(params.lam), impl)
+
+
+def run(cfg: CMAConfig, params: CMAParams, fitness_fn, key, x0,
+        sigma0=None, max_gens: Optional[int] = None, impl: str = "auto", *,
+        device=None) -> CMAState:
+    """Run one descent until a stopping criterion fires or ``max_gens``
+    (``cfg.max_iter`` when None) generations have run: the JAX package's
+    ``cmaes.run``, with its key schedule (``key, init_key = split(key)``,
+    then ``split(key, max_gens)``, one key a generation).  The loop ends
+    at the first stopped generation: JAX's masked updates freeze the whole
+    state from there, so its scan over all ``max_gens`` returns the same
+    state.  ``key`` is an int seed or a (2,) key; ``x0`` and ``params`` are
+    moved to ``device`` (``None``: the CUDA device, raising without one)."""
+    device = resolve_device(device)
+    max_gens = int(max_gens if max_gens is not None else cfg.max_iter)
+    params = CMAParams(*(leaf.to(device) for leaf in params))
+    key, init_key = prng.split(prng.as_key(key, device))
+    state = init_dense_state(
+        cfg, init_key, torch.as_tensor(x0, dtype=cfg.tdtype, device=device),
+        sigma0)
+    keys = prng.split(key, max_gens)
+    lam = int(params.lam)
+    for g in range(max_gens):
+        state = _dense_step(cfg, params, state, fitness_fn, keys[g], lam,
+                            impl)
+        if bool(state.stop):
+            break
+    return state

@@ -7,9 +7,11 @@ Every leaf of a campaign tree (the keys, the stacked ``BBOBInstance``, a
 axis, so one split of that axis shards the whole tree, as one
 ``P("camp")`` spec does in JAX.  ``shard_members`` copies each island's
 slice (or each device group's islands' slices) onto the island's device;
-``join_members`` puts the parts back in island order.  The LM sharding rules
-(``ShardingRules``, ``param_specs``, ``cache_specs``) wait for training
-(ROADMAP.md, queue A item 14).
+``join_members`` puts the parts back in island order.  ``tree_map`` and
+``leaves`` also walk the LM's nested dicts (keys in sorted order, as
+``jax.tree_util`` flattens them).  The LM sharding rules (``ShardingRules``,
+``param_specs``, ``cache_specs``) wait for multi-card training (ROADMAP.md,
+queue A item 16).
 """
 from __future__ import annotations
 
@@ -21,13 +23,15 @@ from repro_torch.launch.mesh import CampaignMesh
 
 
 def tree_map(fn: Callable, *trees):
-    """``fn`` over the tensor leaves of NamedTuples, tuples and lists;
-    None stays."""
+    """``fn`` over the tensor leaves of dicts (sorted keys), NamedTuples,
+    tuples and lists; None stays."""
     t0 = trees[0]
     if t0 is None:
         return None
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in sorted(t0)}
     if isinstance(t0, list):
         return [tree_map(fn, *xs) for xs in zip(*trees)]
     if isinstance(t0, tuple):
@@ -40,6 +44,13 @@ def leaves(tree) -> List[torch.Tensor]:
     out: List[torch.Tensor] = []
     tree_map(out.append, tree)
     return out
+
+
+def from_leaves(template, values):
+    """``values``, in ``leaves(template)``'s order, in ``template``'s
+    structure."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), template)
 
 
 def members(tree) -> int:

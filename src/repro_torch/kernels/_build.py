@@ -9,7 +9,8 @@ and an unchanged one is reused.  All missing libraries are compiled at
 once, one ``nvcc`` process per source.  Nothing here runs at import.
 
 The wrappers (``cma_gen.py``, ``cma_sample.py``, ``cma_update.py``,
-``flash_attention.py``, ``rwkv6_wkv.py``) share the rest: ``function``
+``flash_attention.py``, ``rwkv6_wkv.py``, forward and backward) share the
+rest: ``function``
 binds an entry point, ``check`` refuses a tensor the kernel does not take,
 and ``launch`` calls it on the current stream, raises on a launch error
 and counts the launch in ``LAUNCHES``.  A source's headers (``*.cuh``)
@@ -30,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cma_gen_sample", "cma_gen_update", "cma_sample", "cma_update",
-           "flash_attention", "rwkv6_wkv")
+           "flash_attention", "flash_attention_bwd", "rwkv6_wkv",
+           "rwkv6_wkv_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +41,8 @@ LAUNCHES = {"cma_gen_sample": 0, "cma_gen_sample_eval": 0,
             "cma_gen_update": 0, "cma_gen_sample_rng": 0,
             "cma_gen_sample_rng_eval": 0, "cma_sample_z_rng": 0,
             "cma_sample": 0, "cma_rank_mu_update": 0,
-            "flash_attention": 0, "wkv6_forward": 0}
+            "flash_attention": 0, "wkv6_forward": 0,
+            "flash_attention_bwd": 0, "wkv6_backward": 0}
 #: entry-point suffix per dtype, and the dtypes the CMA-ES kernels and the
 #: LM kernels are built for
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}

@@ -38,6 +38,11 @@
 // loaded when no row of the block sees them, as pl.when(relevant) skips
 // them).
 //
+// For training, each kernel also writes the row statistic the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from: the
+// log-sum-exp of the row's scaled logits, f32 (B, S, H), when the caller
+// passes a buffer for it (the serving call passes none).
+//
 // float32 (flash_f32_kernel) keeps the scalar body: one block per (b*h,
 // 64-row q tile), a q row over D/32 neighbouring threads, K and V staged
 // in shared memory as f32 and the logits of 16 keys at a time summed over
@@ -75,8 +80,8 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 template <typename T, int D>
 __global__ void __launch_bounds__(BQ * (D / 32)) flash_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int Skv, int H,
-    int Hk, int causal, int window, float scale) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int S, int Skv, int H, int Hk, int causal, int window, float scale) {
   constexpr int TPR = D / 32;            // threads per q row
   constexpr int NT = BQ * TPR;
   extern __shared__ float4 smem4[];
@@ -199,13 +204,16 @@ __global__ void __launch_bounds__(BQ * (D / 32)) flash_f32_kernel(
       store4(op + 4 * (g * TPR + sub),
              make_float4(acc[g].x / den, acc[g].y / den, acc[g].z / den,
                          acc[g].w / den));
+    // m is in units of the scaled logits (q was scaled on load)
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<size_t>(b) * S + qi) * H + h] = m + logf(den);
   }
 }
 
 template <typename T, int D>
-int launch_f32(const T* q, const T* k, const T* v, T* o, int B, int S,
-                 int Skv, int H, int Hk, int causal, int window, float scale,
-                 cudaStream_t stream) {
+int launch_f32(const T* q, const T* k, const T* v, T* o, float* lse, int B,
+               int S, int Skv, int H, int Hk, int causal, int window,
+               float scale, cudaStream_t stream) {
   const int smem = 2 * BKV * D * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -213,7 +221,7 @@ int launch_f32(const T* q, const T* k, const T* v, T* o, int B, int S,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   flash_f32_kernel<T, D><<<grid, BQ * (D / 32), smem, stream>>>(
-      q, k, v, o, S, Skv, H, Hk, causal, window, scale);
+      q, k, v, o, lse, S, Skv, H, Hk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,7 +439,8 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-    int S, int Skv, int H, int Hk, int causal, int window, float scale) {
+    float* __restrict__ lse, int S, int Skv, int H, int Hk, int causal,
+    int window, float scale) {
   using Tl = Tile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * KV_STAGES];
@@ -617,6 +626,10 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // (m, l) are in units of the raw logits: lse = scale m + ln l
+    if (lse != nullptr && t == 0 && row0 + 8 * r < S)
+      lse[(static_cast<size_t>(b) * S + row0 + 8 * r) * H + h] =
+          m[r] * scale + logf(fmaxf(l[r], 1e-30f));
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
   const size_t q_stride = static_cast<size_t>(H) * D;
@@ -681,9 +694,9 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq,
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Skv, int H, int Hk, int causal, int window,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Skv, int H, int Hk, int causal,
+                int window, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err;
   if ((err = tensor_map<D>(&tq, q, B, S, H)) != 0) return err;
@@ -696,41 +709,42 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(B * H, (S + BQ16 - 1) / BQ16);
   flash_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Skv, H, Hk, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Skv, H, Hk, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(bool bf16, const void* q, const void* k, const void* v, void* o,
-           int B, int S, int Skv, int H, int Hk, int causal, int window,
-           float scale, cudaStream_t stream) {
+           float* lse, int B, int S, int Skv, int H, int Hk, int causal,
+           int window, float scale, cudaStream_t stream) {
   if (bf16)
-    return launch_bf16<D>(q, k, v, o, B, S, Skv, H, Hk, causal, window,
+    return launch_bf16<D>(q, k, v, o, lse, B, S, Skv, H, Hk, causal, window,
                           scale, stream);
   return launch_f32<float, D>(static_cast<const float*>(q),
                               static_cast<const float*>(k),
                               static_cast<const float*>(v),
-                              static_cast<float*>(o), B, S, Skv, H, Hk,
+                              static_cast<float*>(o), lse, B, S, Skv, H, Hk,
                               causal, window, scale, stream);
 }
 
 int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
-             int B, int S, int Skv, int H, int Hk, int D, int causal,
-             int window, float scale, void* stream) {
+             void* lse_out, int B, int S, int Skv, int H, int Hk, int D,
+             int causal, int window, float scale, void* stream) {
   if (B < 1 || S < 1 || Skv < 1 || Hk < 1 || H % Hk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
     case 32:
-      return launch<32>(bf16, q, k, v, o, B, S, Skv, H, Hk, causal, window,
-                        scale, st);
+      return launch<32>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                        window, scale, st);
     case 64:
-      return launch<64>(bf16, q, k, v, o, B, S, Skv, H, Hk, causal, window,
-                        scale, st);
+      return launch<64>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                        window, scale, st);
     case 128:
-      return launch<128>(bf16, q, k, v, o, B, S, Skv, H, Hk, causal, window,
-                         scale, st);
+      return launch<128>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                         window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -740,11 +754,11 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
 
 #define FLASH_ENTRY(SUFFIX, BF16)                                             \
   extern "C" int flash_attention_##SUFFIX(                                    \
-      const void* q, const void* k, const void* v, void* o, int B, int S,     \
-      int Skv, int H, int Hk, int D, int causal, int window, float scale,     \
-      void* stream) {                                                         \
-    return dispatch(BF16, q, k, v, o, B, S, Skv, H, Hk, D, causal, window,    \
-                    scale, stream);                                           \
+      const void* q, const void* k, const void* v, void* o, void* lse, int B, \
+      int S, int Skv, int H, int Hk, int D, int causal, int window,           \
+      float scale, void* stream) {                                            \
+    return dispatch(BF16, q, k, v, o, lse, B, S, Skv, H, Hk, D, causal,       \
+                    window, scale, stream);                                   \
   }
 
 FLASH_ENTRY(f32, false)

@@ -13,6 +13,14 @@ The wrapper takes CUDA tensors only — it checks device, dtype, shape,
 contiguity and alignment and raises, it never falls back — and launches on
 the current stream without synchronising.  The launch is counted under
 ``"flash_attention"`` in ``_build.LAUNCHES``.
+
+For training, ``flash_attention_stats`` is the same launch writing, beside
+o, each row's log-sum-exp of the scaled logits (f32 (B, S, H)), and
+``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (no TPU
+counterpart: the JAX package's flash path differentiates with
+``repro/models/flash_xla.py::_flash_bwd_impl``), counted under
+``"flash_attention_bwd"``.  ``FlashAttention`` is the autograd function
+over the pair; its plain version is ``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P]
+_ARGS = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
 HEAD_DIMS = (32, 64, 128)
 #: the TPU kernel's KV block: non-causal attention needs S_kv a multiple
 #: of min(BKV, S_kv), as ``repro/kernels/flash_attention.py:128`` requires
@@ -38,9 +47,8 @@ def check_contract(causal: bool, Skv: int) -> None:
             "non-causal flash kernel requires S_kv % bkv == 0")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """o (B, S, H, D) = softmax(q kᵀ / √D, masked) v with GQA: query head h
-    reads KV head ``h // (H // H_k)``."""
+def _check(q, k, v, causal: bool):
+    """(B, S, H, D, Skv, Hk) of valid operands; raises otherwise."""
     if not q.is_cuda:
         raise ValueError("q: the CUDA kernel takes CUDA tensors, got one on "
                          f"{q.device}")
@@ -56,6 +64,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if S < 1 or Skv < 1:
         raise ValueError(f"empty sequence: S={S}, S_kv={Skv}")
     check_contract(causal, Skv)
+    return B, S, H, D, Skv, Hk
+
+
+def _forward(q, k, v, causal: bool, window: int, stats: bool):
+    B, S, H, D, Skv, Hk = _check(q, k, v, causal)
     dt, dev = q.dtype, q.device
     ptrs = [_build.check("q", q, (B, S, H, D), dt, dev),
             _build.check("k", k, (B, Skv, Hk, D), dt, dev),
@@ -63,7 +76,73 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     if any(p % 16 for p in ptrs):
         raise ValueError("q, k and v must start on a 16-byte boundary")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=dev)
+           if stats else None)
     fn = _build.function("flash_attention", "flash_attention", dt, _ARGS)
-    _build.launch(fn, "flash_attention", dev, *ptrs, o.data_ptr(), B, S, Skv,
+    _build.launch(fn, "flash_attention", dev, *ptrs, o.data_ptr(),
+                  None if lse is None else lse.data_ptr(), B, S, Skv, H, Hk,
+                  D, int(bool(causal)), int(window), D ** -0.5)
+    return o, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """o (B, S, H, D) = softmax(q kᵀ / √D, masked) v with GQA: query head h
+    reads KV head ``h // (H // H_k)``."""
+    return _forward(q, k, v, causal, window, False)[0]
+
+
+def flash_attention_stats(q, k, v, *, causal: bool = True, window: int = 0):
+    """(o, lse): ``flash_attention``'s output and, in the same launch, each
+    row's log-sum-exp of the scaled, masked logits, f32 (B, S, H)."""
+    return _forward(q, k, v, causal, window, True)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
+    gradient ``do``, from the forward's o and lse; the gradients have the
+    inputs' dtype.  One call: two launches (dq with the row sums
+    do·o into scratch, then dk and dv), counted once."""
+    B, S, H, D, Skv, Hk = _check(q, k, v, causal)
+    dt, dev = q.dtype, q.device
+    qshape, kshape = (B, S, H, D), (B, Skv, Hk, D)
+    ptrs = [_build.check("q", q, qshape, dt, dev),
+            _build.check("k", k, kshape, dt, dev),
+            _build.check("v", v, kshape, dt, dev),
+            _build.check("o", o, qshape, dt, dev),
+            _build.check("lse", lse, (B, S, H), torch.float32, dev),
+            _build.check("do", do, qshape, dt, dev)]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("q, k, v, o, lse and do must start on a 16-byte "
+                         "boundary")
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    fn = _build.function("flash_attention_bwd", "flash_attention_bwd", dt,
+                         _BWD_ARGS)
+    _build.launch(fn, "flash_attention_bwd", dev, *ptrs, dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, Skv,
                   H, Hk, D, int(bool(causal)), int(window), D ** -0.5)
-    return o
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward launches the
+    forward kernel with the row statistics, the backward
+    ``flash_attention_bwd``.  Saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

@@ -28,6 +28,14 @@ counterpart).
   ``"xla"`` alone and so sends ``"xla_unfused"`` to its kernel.
 
 ``covariance_combine`` is plain under every tier, as in the JAX package.
+
+The LM kernels have gradients: on a CUDA tensor under a kernel tier, while
+autograd records and an operand requires a gradient, ``flash_attention``
+and ``wkv_chunked`` go through the autograd functions
+(``flash_attention.FlashAttention``, ``rwkv6_wkv.WKV6``), whose backward is
+a kernel too; otherwise they make the forward launch alone.  On the CPU
+the plain versions' own autograd serves.
+
 Not ported: the JAX package's Mosaic probe and quiet fallback
 (``_rng_kernel_supported``), its ``REPRO_KERNEL_IMPL`` override, and
 ``rng_bits="hw"`` (the TPU's hardware PRNG has no counterpart).
@@ -231,15 +239,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if validate_impl(impl) in KERNEL_TIERS:
         flash_mod.check_contract(causal, k.shape[1])
     if _kernel(impl, q):
+        if _records(q, k, v):
+            return flash_mod.FlashAttention.apply(q, k, v, causal, window)
         return flash_mod.flash_attention(q, k, v, causal=causal,
                                          window=window)
     return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _records(*ts) -> bool:
+    """Whether autograd records an op on ``ts``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def wkv_chunked(r, k, v, logw, u, state, impl: str = "auto"):
     """Chunked RWKV-6 WKV from ``state`` (B, H, D, D) f32: (o, new state);
     ``repro/models/rwkv6.py::wkv_chunked``'s contract."""
     if _kernel(impl, r):
+        if _records(r, k, v, logw, u, state):
+            return rwkv6_wkv.WKV6.apply(r, k, v, logw, u, state)
         return rwkv6_wkv.wkv6_forward(r, k, v, logw, u, state)
     return ref.wkv_chunked(r, k, v, logw, u, state)
 

@@ -206,27 +206,146 @@ def fused_gen_update(C, B, D, p_sigma, p_c, Y, w, c_sigma, mu_eff, c_c, c_1,
 WKV_CHUNK = 16
 
 
+def _index_mask(S: int, Skv: int, causal: bool, window: int, device,
+                q0: int = 0, k0: int = 0):
+    """(S, Skv) bool: which keys rows ``q0..`` may see among ``k0..``, in
+    index order (causal: key ≤ query; window: key > query − window)."""
+    q_ids = torch.arange(q0, q0 + S, device=device)[:, None]
+    k_ids = torch.arange(k0, k0 + Skv, device=device)[None, :]
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window > 0:
+        mask &= k_ids > q_ids - window
+    return mask
+
+
+def _flash_logits(q, k, causal: bool, window: int):
+    """Masked f32 logits (B, H_k, rep, S, S_kv) of the GQA heads."""
+    B, S, H, D = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hk, H // Hk, D).float() * (D ** -0.5)
+    logits = torch.einsum("bshrd,bthd->bhrst", qg, k.float())
+    mask = _index_mask(S, Skv, causal, window, q.device)
+    return torch.where(mask, logits, -1e30)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Materialised-softmax GQA attention (``repro/kernels/ref.py:269``):
     q (B, S, H, D), k/v (B, S_kv, H_k, D) → (B, S, H, D) in q's dtype.
     Masks are in index order: causal keeps keys ≤ the query's index, a
     window keeps keys > index − window.  f32 logits and probabilities."""
     B, S, H, D = q.shape
+    p = torch.softmax(_flash_logits(q, k, causal, window), dim=-1)
+    o = torch.einsum("bhrst,bthd->bshrd", p, v.float())
+    return o.reshape(B, S, H, D).to(q.dtype).contiguous()
+
+
+def flash_attention_lse(q, k, *, causal: bool = True, window: int = 0):
+    """The flash kernel's row statistic: log-sum-exp of each row's scaled,
+    masked logits, f32 (B, S, H)."""
+    B, S, H, _ = q.shape
+    lse = torch.logsumexp(_flash_logits(q, k, causal, window), dim=-1)
+    return lse.permute(0, 3, 1, 2).reshape(B, S, H).contiguous()
+
+
+def _kv_block_ids(qi: int, bq: int, bkv: int, nkv: int, window: int):
+    """KV blocks a q block visits (``flash_xla._kv_block_ids``): all of
+    them, or with a window the static-length range ending at the q
+    block's diagonal, out-of-range ids dropped."""
+    if window <= 0:
+        return list(range(nkv))
+    n_need = min(nkv, -(-(window + bq) // bkv) + 1)
+    last = (qi * bq + bq - 1) // bkv
+    return [i for i in range(last - (n_need - 1), last + 1) if 0 <= i < nkv]
+
+
+def _q_block_ids(ki: int, bq: int, bkv: int, nq: int, window: int):
+    """q blocks that may see KV block ``ki`` (``flash_xla``'s pass 2)."""
+    if window <= 0:
+        return list(range(nq))
+    n_need = min(nq, -(-(window + bkv) // bq) + 1)
+    first = (ki * bkv) // bq
+    return [i for i in range(first, first + n_need) if 0 <= i < nq]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, bq: int = 512, bkv: int = 512):
+    """(dq, dk, dv) of ``flash_attention`` from the forward's o and row
+    log-sum-exp ``lse`` (B, S, H): the two blockwise passes of
+    ``repro/models/flash_xla.py::_flash_bwd_impl`` (pass 1: dq over q
+    blocks × KV blocks; pass 2: dk, dv over KV blocks × q blocks), the
+    probabilities recomputed as exp(scale q·k − lse) in f32.  The JAX
+    package keeps (m, l) and recomputes exp(s − m)/l; padded q rows get
+    lse = +inf here, so they add nothing to dk and dv.  The gradients have
+    the inputs' dtype."""
+    B, S, H, D = q.shape
     Skv, Hk = k.shape[1], k.shape[2]
     rep = H // Hk
-    qg = q.reshape(B, S, Hk, rep, D).float() * (D ** -0.5)
-    logits = torch.einsum("bshrd,bthd->bhrst", qg, k.float())
-    q_ids = torch.arange(S, device=q.device)[:, None]
-    k_ids = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= k_ids <= q_ids
-    if window > 0:
-        mask &= k_ids > q_ids - window
-    logits = torch.where(mask, logits, -1e30)
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhrst,bthd->bshrd", p, v.float())
-    return o.reshape(B, S, H, D).to(q.dtype)
+    scale = D ** -0.5
+    bq, bkv = min(bq, S), min(bkv, Skv)
+    nq, nkv = -(-S // bq), -(-Skv // bkv)
+    pq, pkv = nq * bq - S, nkv * bkv - Skv
+
+    def pad(x, n, value=0.0):
+        return torch.nn.functional.pad(
+            x.float(), (0, 0) * (x.dim() - 2) + (0, n), value=value)
+    qp, op, dop = (pad(x, pq) for x in (q, o, do))
+    lp = pad(lse, pq, float("inf"))
+    kp, vp = pad(k, pkv), pad(v, pkv)
+    delta = torch.sum(dop * op, dim=-1)                      # (B, Sp, H)
+
+    def blk(x, i, size):
+        return x[:, i * size:(i + 1) * size]
+
+    def p_tile(q_b, k_b, l_b, qi, ki):
+        s = torch.einsum("bqhrd,bkhd->bqhrk",
+                         q_b.reshape(B, bq, Hk, rep, D) * scale, k_b)
+        msk = _index_mask(bq, bkv, causal, window, q.device, qi * bq,
+                          ki * bkv) & (torch.arange(ki * bkv, (ki + 1) * bkv,
+                                                    device=q.device) < Skv)
+        s = torch.where(msk[None, :, None, None, :], s, -1e30)
+        return torch.exp(s.reshape(B, bq, H, bkv) - l_b[..., None])
+
+    def ds_tile(p, do_b, v_b, d_b):
+        dp = torch.einsum("bqhrd,bkhd->bqhrk",
+                          do_b.reshape(B, bq, Hk, rep, D),
+                          v_b).reshape(B, bq, H, bkv)
+        return p * (dp - d_b[..., None])
+
+    dq = torch.zeros_like(qp)                                # pass 1
+    for qi in range(nq):
+        q_b, do_b = blk(qp, qi, bq), blk(dop, qi, bq)
+        l_b, d_b = blk(lp, qi, bq), blk(delta, qi, bq)
+        acc = torch.zeros((B, bq, H, D), dtype=torch.float32,
+                          device=q.device)
+        for ki in _kv_block_ids(qi, bq, bkv, nkv, window):
+            k_b, v_b = blk(kp, ki, bkv), blk(vp, ki, bkv)
+            ds = ds_tile(p_tile(q_b, k_b, l_b, qi, ki), do_b, v_b, d_b)
+            acc = acc + torch.einsum(
+                "bqhrk,bkhd->bqhrd", ds.reshape(B, bq, Hk, rep, bkv),
+                k_b).reshape(B, bq, H, D) * scale
+        dq[:, qi * bq:(qi + 1) * bq] = acc
+
+    dk, dv = torch.zeros_like(kp), torch.zeros_like(vp)      # pass 2
+    for ki in range(nkv):
+        k_b, v_b = blk(kp, ki, bkv), blk(vp, ki, bkv)
+        dk_acc, dv_acc = torch.zeros_like(k_b), torch.zeros_like(v_b)
+        for qi in _q_block_ids(ki, bq, bkv, nq, window):
+            q_b, do_b = blk(qp, qi, bq), blk(dop, qi, bq)
+            l_b, d_b = blk(lp, qi, bq), blk(delta, qi, bq)
+            p = p_tile(q_b, k_b, l_b, qi, ki)
+            dv_acc = dv_acc + torch.einsum(
+                "bqhrk,bqhrd->bkhd", p.reshape(B, bq, Hk, rep, bkv),
+                do_b.reshape(B, bq, Hk, rep, D))
+            ds = ds_tile(p, do_b, v_b, d_b)
+            dk_acc = dk_acc + torch.einsum(
+                "bqhrk,bqhrd->bkhd", ds.reshape(B, bq, Hk, rep, bkv),
+                q_b.reshape(B, bq, Hk, rep, D)) * scale
+        dk[:, ki * bkv:(ki + 1) * bkv] = dk_acc
+        dv[:, ki * bkv:(ki + 1) * bkv] = dv_acc
+    return (dq[:, :S].to(q.dtype), dk[:, :Skv].to(k.dtype),
+            dv[:, :Skv].to(v.dtype))
 
 
 def wkv_chunked(r, k, v, logw, u, state):
@@ -270,3 +389,24 @@ def wkv6(r, k, v, logw, u):
     B, _, H, D = r.shape
     state0 = torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
     return wkv_chunked(r, k, v, logw, u, state0)[0]
+
+
+def wkv_backward(r, k, v, logw, u, state, do, dstate=None):
+    """Gradients of ``wkv_chunked`` for the output gradient ``do`` and the
+    final state's ``dstate`` (None: zero), by ``torch.autograd.grad``
+    through it: (dr, dk, dv, dlogw, du, d(initial state)), each in its
+    input's dtype (``state`` None: a zero state, whose gradient is still
+    returned)."""
+    B, _, H, D = r.shape
+    if state is None:
+        state = torch.zeros((B, H, D, D), dtype=torch.float32,
+                            device=r.device)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_()
+               for t in (r, k, v, logw, u, state)]
+        o, s_new = wkv_chunked(*ins)
+        outs, grads = [o], [do]
+        if dstate is not None:
+            outs.append(s_new)
+            grads.append(dstate)
+        return torch.autograd.grad(outs, ins, grads)

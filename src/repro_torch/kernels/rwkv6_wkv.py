@@ -15,6 +15,13 @@ The wrapper takes CUDA tensors only — it checks device, dtype, shape and
 contiguity and raises, it never falls back — and launches on the current
 stream without synchronising.  The launch is counted under
 ``"wkv6_forward"`` in ``_build.LAUNCHES``.
+
+For training, ``wkv6_backward`` launches ``csrc/rwkv6_wkv_bwd.cu`` (no TPU
+counterpart: the JAX package differentiates ``wkv_chunked`` by autodiff),
+counted under ``"wkv6_backward"``; it recomputes the chunks' entry states
+into a scratch buffer of the call (B·H·S/16·D·D f32), so the forward saves
+only its inputs.  ``WKV6`` is the autograd function over the pair; its
+plain version is ``ref.wkv_backward``.
 """
 from __future__ import annotations
 
@@ -27,11 +34,11 @@ from repro_torch.kernels.ref import WKV_CHUNK
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 16 + [_I] * 4 + [_P]
 HEAD_DIMS = (32, 64, 128)
 
 
-def wkv6_forward(r, k, v, logw, u, state=None):
-    """(o (B, S, H, D) in r's dtype, final state (B, H, D, D) f32)."""
+def _check_shape(r):
     if not r.is_cuda:
         raise ValueError("r: the CUDA kernel takes CUDA tensors, got one on "
                          f"{r.device}")
@@ -43,6 +50,12 @@ def wkv6_forward(r, k, v, logw, u, state=None):
     if S % WKV_CHUNK:
         raise ValueError(f"S = {S} must be a multiple of {WKV_CHUNK} (the "
                          "caller pads)")
+    return B, S, H, D
+
+
+def wkv6_forward(r, k, v, logw, u, state=None):
+    """(o (B, S, H, D) in r's dtype, final state (B, H, D, D) f32)."""
+    B, S, H, D = _check_shape(r)
     dt, dev, f32 = r.dtype, r.device, torch.float32
     shape = (B, S, H, D)
     ptrs = [_build.check("r", r, shape, dt, dev),
@@ -62,3 +75,63 @@ def wkv6_forward(r, k, v, logw, u, state=None):
     _build.launch(fn, "wkv6_forward", dev, *ptrs, o.data_ptr(),
                   s_out.data_ptr(), B, S, H, D)
     return o, s_out
+
+
+def wkv6_backward(r, k, v, logw, u, state, do, dstate=None,
+                  need_dstate: bool = True):
+    """Gradients of ``wkv6_forward`` for the output gradient ``do`` (r's
+    dtype) and the final state's ``dstate`` (f32, None: zero): (dr, dk,
+    dv) in r's dtype, dlogw (B, S, H, D), du (H, D) and d(initial state)
+    (B, H, D, D, None unless ``need_dstate``), all f32.  One call: the
+    backward launch and a launch summing du over the batch in order,
+    counted once."""
+    B, S, H, D = _check_shape(r)
+    dt, dev, f32 = r.dtype, r.device, torch.float32
+    shape = (B, S, H, D)
+    sshape = (B, H, D, D)
+    ins = [_build.check("r", r, shape, dt, dev),
+           _build.check("k", k, shape, dt, dev),
+           _build.check("v", v, shape, dt, dev),
+           _build.check("logw", logw, shape, f32, dev),
+           _build.check("u", u, (H, D), f32, dev),
+           0 if state is None else _build.check("state", state, sshape, f32,
+                                                dev),
+           _build.check("do", do, shape, dt, dev),
+           0 if dstate is None else _build.check("dstate", dstate, sshape,
+                                                 f32, dev)]
+    dr, dk, dv = (torch.empty_like(r), torch.empty_like(k),
+                  torch.empty_like(v))
+    dlogw = torch.empty(shape, dtype=f32, device=dev)
+    du = torch.empty((H, D), dtype=f32, device=dev)
+    ds0 = torch.empty(sshape, dtype=f32, device=dev) if need_dstate else None
+    du_part = torch.empty((B, H, D), dtype=f32, device=dev)
+    states = torch.empty((B * H, S // WKV_CHUNK, D, D), dtype=f32,
+                         device=dev)
+    fn = _build.function("rwkv6_wkv_bwd", "wkv6_backward", dt, _BWD_ARGS)
+    _build.launch(fn, "wkv6_backward", dev, *ins, dr.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
+                  du.data_ptr(), 0 if ds0 is None else ds0.data_ptr(),
+                  du_part.data_ptr(), states.data_ptr(), B, S, H, D)
+    return dr, dk, dv, dlogw, du, ds0
+
+
+class WKV6(torch.autograd.Function):
+    """``wkv6_forward`` with its gradient (``wkv6_backward``).  Saves the
+    inputs only; ``state`` may be None (a zero state)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state):
+        ctx.set_materialize_grads(False)      # an unused output: None
+        o, s_out = wkv6_forward(r, k, v, logw, u, state)
+        ctx.save_for_backward(r, k, v, logw, u, state)
+        return o, s_out
+
+    @staticmethod
+    def backward(ctx, do, dstate):
+        r, k, v, logw, u, state = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.contiguous()
+        dstate = None if dstate is None else dstate.contiguous()
+        dr, dk, dv, dlogw, du, ds0 = wkv6_backward(
+            r, k, v, logw, u, state, do, dstate,
+            need_dstate=ctx.needs_input_grad[5])
+        return dr, dk, dv, dlogw, du, ds0

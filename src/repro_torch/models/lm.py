@@ -3,11 +3,15 @@
 Two families are ported: ``dense`` without the gemma local/global pattern
 (qwen2) and ``ssm`` (rwkv6).  The parameter tree is the JAX package's: the
 same keys, every layer stack under ``segments/unit`` with a leading layer
-axis.  The JAX package scans over that axis; the port loops over it in
-Python.  ``remat`` has no meaning without a backward and is ignored.  The
-other families (``moe``, ``hybrid``, ``vlm``, ``audio``), gemma's
-local/global pattern, sinusoidal positions and non-token inputs raise
-``NotImplementedError`` (ROADMAP.md, queue A item 14).
+axis.  The JAX package scans over that axis; the port unbinds it once and
+loops over the layers in Python, so a stack's gradient is gathered by one
+stack, not by a scatter a layer.  ``cfg.remat`` means what it means in the
+JAX package: while autograd records, each layer and each cross-entropy
+chunk runs under ``torch.utils.checkpoint`` and is recomputed in the
+backward (on the card the flash and WKV forward kernels then launch twice
+a layer).  The other families (``moe``, ``hybrid``, ``vlm``, ``audio``),
+gemma's local/global pattern, sinusoidal positions and non-token inputs
+raise ``NotImplementedError`` (ROADMAP.md, queue A item 14).
 
   init_params(cfg, key, device)          → params
   forward(cfg, params, batch)            → (hidden, aux_loss)
@@ -29,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -87,6 +92,26 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked subtree, each leaf unbound once along
+    its layer axis (views; the backward stacks the layers' gradients in
+    one pass)."""
+    def walk(t):
+        if isinstance(t, dict):
+            parts = {k: walk(v) for k, v in t.items()}
+            return [{k: parts[k][i] for k in parts} for i in range(n)]
+        return t.unbind(0)
+    return walk(tree)
+
+
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``cfg.remat``
+    and autograd records (JAX's ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -206,16 +231,18 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
-    unit = params["segments"]["unit"]
     _, norm = _norm_fns(cfg)
     if cfg.family == "ssm":
         x = norm(params["ln0"], x)
-    for i in range(cfg.n_layers):
-        lp = _layer(unit, i)
-        if cfg.family == "dense":
-            x, _ = _attn_block(cfg, lp, x, positions)
-        else:
-            x, _ = _rwkv_block(cfg, lp, x, None)
+
+    def dense_body(lp, x):
+        return _attn_block(cfg, lp, x, positions)[0]
+
+    def ssm_body(lp, x):
+        return _rwkv_block(cfg, lp, x, None)[0]
+    body = dense_body if cfg.family == "dense" else ssm_body
+    for lp in _unbind_layers(params["segments"]["unit"], cfg.n_layers):
+        x = _remat(cfg, body, lp, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return norm(params["final_norm"], x), aux
 
@@ -227,22 +254,25 @@ def forward(cfg: ModelConfig, params: dict, batch: dict):
 def chunked_ce(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
                labels: torch.Tensor):
     """Mean token NLL over ``logits_chunk`` slices of the sequence, f32
-    log-sum-exp; labels < 0 are ignored."""
+    log-sum-exp; labels < 0 are ignored.  Under ``cfg.remat`` each chunk's
+    logits are recomputed in the backward."""
     head = head_matrix(cfg, params)                    # (d, V)
     S = hidden.shape[1]
     C = min(cfg.logits_chunk, S)
     labels = labels.long()
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, S, C):
-        logits = _logits(hidden[:, c0:c0 + C], head)
-        y = labels[:, c0:c0 + C]
+
+    def chunk_loss(h, y, head):
+        logits = _logits(h, head)
         valid = y >= 0
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y.clamp(min=0)[..., None])[..., 0]
-        nll = torch.where(valid, lse - gold, 0.0)
-        total = total + nll.sum()
-        count = count + valid.sum().float()
+        return torch.where(valid, lse - gold, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, C):
+        total = total + _remat(cfg, chunk_loss, hidden[:, c0:c0 + C],
+                               labels[:, c0:c0 + C], head)
+    count = (labels >= 0).sum().float()
     return total / torch.clamp(count, min=1.0)
 
 

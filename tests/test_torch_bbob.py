@@ -29,6 +29,7 @@ from repro_torch import convert
 from repro_torch.core import prng
 from repro_torch.fitness import bbob as tb
 from repro_torch.fitness import surrogates as tsur
+from torch_threads import one_thread  # noqa: F401
 
 FIDS = list(range(1, 25))
 RTOL = {16: 1e-9, 19: 1e-9, 17: 1e-11, 18: 1e-11}

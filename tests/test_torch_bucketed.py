@@ -36,6 +36,7 @@ from repro_torch.core import bucketed as tbucketed
 from repro_torch.core import ipop as tipop
 from repro_torch.core import params as tparams
 from repro_torch.fitness import bbob as tb
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(lam_start=8, kmax_exp=2, max_evals=2600)
 JAX_IMPL = {"auto": "auto", "kernel_rng": "pallas_rng"}

@@ -31,6 +31,7 @@ from repro_torch.core import bucketed as tbucketed
 from repro_torch.core import ladder as tladder
 from repro_torch.fitness import bbob as tb
 from repro_torch.kernels import ops
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(n=4, lam_start=8, kmax_exp=1, max_evals=1600, eigen_interval=1)
 MENUS = {"sep": (1, 2), "mixed": (1, 8, 21)}

@@ -14,6 +14,7 @@ import torch
 
 from repro.checkpoint import store as jstore
 from repro_torch.checkpoint import store as tstore
+from torch_threads import one_thread  # noqa: F401
 
 
 class Pair(NamedTuple):

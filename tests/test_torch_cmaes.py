@@ -15,6 +15,7 @@ from repro_torch.core import cmaes as tcmaes
 from repro_torch.core import ladder as tladder
 from repro_torch.core.params import select_params as tselect
 from repro_torch.fitness import bbob as tb
+from torch_threads import one_thread  # noqa: F401
 
 N = 6
 

@@ -37,6 +37,7 @@ from repro_torch.core.params import select_params as tselect
 from repro_torch.fitness import bbob as tb
 
 from test_torch_bucketed import JAX_IMPL, _signed_eigen
+from torch_threads import one_thread  # noqa: F401
 
 #: float32 agreement: 64 ulp of the value (accumulated rounding over a
 #: generation's sums and the batched eigh)

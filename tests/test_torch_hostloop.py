@@ -27,6 +27,7 @@ from repro.fitness import bbob as jb
 from repro_torch.core import ipop as tipop
 from repro_torch.core import ladder as tladder
 from repro_torch.fitness import bbob as tb
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(lam_start=8, kmax_exp=2, max_evals=4000)
 

@@ -17,6 +17,7 @@ from repro_torch.fitness import bbob as tb
 from repro_torch.kernels import (cma_gen, cma_sample, cma_update, ops,
                                  sample_plan)
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 # (S, lam, n): odd n, λ < 8, S > 1
 SHAPES = [(1, 5, 7), (3, 16, 9), (2, 7, 13)]

@@ -23,6 +23,7 @@ from repro.launch import es as jes
 from repro_torch.core import strategies as tst
 from repro_torch.fitness import bbob as tb
 from repro_torch.launch import es as tes
+from torch_threads import one_thread  # noqa: F401
 
 N = 4
 

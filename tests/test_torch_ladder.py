@@ -21,6 +21,7 @@ from repro_torch.core import ipop as tipop
 from repro_torch.core import ladder as tladder
 from repro_torch.fitness import bbob as tb
 from repro_torch.fleet import FleetConfig
+from torch_threads import one_thread  # noqa: F401
 
 T = 24
 

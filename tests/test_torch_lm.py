@@ -28,6 +28,7 @@ from repro_torch.models import layers as tl
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import rwkv6 as tr
+from torch_threads import one_thread  # noqa: F401
 
 DTYPES = ["float32", "bfloat16"]
 OP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

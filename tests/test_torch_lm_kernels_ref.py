@@ -25,6 +25,7 @@ from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rwkv6_wkv as t_wkv
+from torch_threads import one_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

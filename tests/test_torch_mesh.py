@@ -30,6 +30,7 @@ from conftest import hermetic_subproc_env
 from repro_torch.core import bucketed as tbucketed
 from repro_torch.distributed import mesh_engine as tmesh
 from repro_torch.launch.mesh import make_campaign_mesh
+from torch_threads import one_thread  # noqa: F401
 
 KW = dict(n=4, lam_start=8, kmax_exp=2, max_evals=5000)
 FIDS = (1, 2)

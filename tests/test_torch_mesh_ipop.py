@@ -19,6 +19,7 @@ from repro_torch.core import ipop as tipop
 from repro_torch.distributed import mesh_engine as tmesh
 from repro_torch.fitness import bbob as tb
 from repro_torch.launch.mesh import make_campaign_mesh
+from torch_threads import one_thread  # noqa: F401
 
 STRATEGIES = ("ordered", "concurrent")
 ECDF_KW = dict(n=8, lam_start=8, kmax_exp=1, max_evals=4000,

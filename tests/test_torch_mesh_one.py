@@ -29,6 +29,7 @@ from repro_torch.fitness import bbob as tb
 from repro_torch.fleet import FaultPlan, FleetConfig
 from repro_torch.fleet.controller import IslandSupervisor
 from repro_torch.launch.mesh import make_campaign_mesh
+from torch_threads import one_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch import configs, convert
 from repro_torch.core import ipop
 from repro_torch.data.pipeline import SyntheticTokens
 from repro_torch.fitness import nn_fitness as tnn
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shard,num_shards", [(0, 1), (1, 2)])

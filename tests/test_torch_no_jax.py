@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import ipop, ladder
 from repro_torch.fitness import bbob
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -54,6 +55,11 @@ SERVICE_MODULES = {"repro_torch.checkpoint.store", "repro_torch.obs",
 #: modules of the fleet slice the walk must reach
 FLEET_MODULES = {"repro_torch.fleet", "repro_torch.fleet.faults",
                  "repro_torch.fleet.health", "repro_torch.fleet.controller"}
+#: modules of the training slice the walk must reach
+TRAIN_MODULES = {"repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step", "repro_torch.train.trainer",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.launch.train"}
 
 
 def test_port_imports_without_jax_or_repro():
@@ -69,6 +75,7 @@ def test_port_imports_without_jax_or_repro():
     assert SERVICE_MODULES <= set(words[2:]), \
         SERVICE_MODULES - set(words[2:])
     assert FLEET_MODULES <= set(words[2:]), FLEET_MODULES - set(words[2:])
+    assert TRAIN_MODULES <= set(words[2:]), TRAIN_MODULES - set(words[2:])
 
 
 def test_entry_points_need_cuda_unless_asked(monkeypatch):
@@ -80,6 +87,15 @@ def test_entry_points_need_cuda_unless_asked(monkeypatch):
         ipop.run_ipop(fn, 3, 0, max_evals=100)
     with pytest.raises(RuntimeError, match="CUDA"):
         ladder.LadderEngine(n=3)
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import cmaes
+    from repro_torch.core.params import CMAConfig, make_params
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = CMAConfig(n=3, lam=6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cmaes.run(cfg, make_params(cfg), fn, 0, torch.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(smoke_config("qwen2-0.5b"), TrainerConfig(), 16, 2)
 
 
 def test_fitness_factories_follow_the_device_rule(monkeypatch):

@@ -24,6 +24,7 @@ from repro_torch.fitness import bbob as tb
 from repro_torch.obs import registry as treg
 from repro_torch.obs import schema as tschema
 from repro_torch.obs import trace as ttrace
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 KW = dict(lam_start=8, kmax_exp=2, device="cpu")

@@ -16,6 +16,7 @@ from repro.core import stopping as jstop
 from repro_torch import convert
 from repro_torch.core import params as tparams
 from repro_torch.core import stopping as tstop
+from torch_threads import one_thread  # noqa: F401
 
 
 def _assert_params_equal(jp, tp):

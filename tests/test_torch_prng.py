@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+from torch_threads import one_thread  # noqa: F401
 
 SEEDS = [0, 7, 123456789, 2 ** 33 + 5]
 

@@ -20,6 +20,7 @@ from repro_torch.core import prng
 from repro_torch.fitness import bbob as tb
 from repro_torch.kernels import cma_gen, ops
 from repro_torch.kernels import ref as tref
+from torch_threads import one_thread  # noqa: F401
 
 RNG_SHAPES = [(1, 8, 4), (3, 12, 10), (2, 6, 7), (2, 9, 130)]
 DTYPES = [(jnp.float64, torch.float64), (jnp.float32, torch.float32)]

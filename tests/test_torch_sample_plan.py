@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import sample_plan
+from torch_threads import one_thread  # noqa: F401
 
 SOURCE = Path(sample_plan.__file__).parent / "csrc" / "sample_gemm.cuh"
 CPU = torch.device("cpu")

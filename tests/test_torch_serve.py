@@ -25,6 +25,7 @@ from repro_torch import configs, convert
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.serve.engine import Engine, Request
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 CASES = [("qwen2-0.5b", dict(attn_impl="flash")), ("rwkv6-3b", {})]

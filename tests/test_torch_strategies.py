@@ -34,6 +34,7 @@ from repro_torch.core import ladder as tladder
 from repro_torch.core import params as tparams
 from repro_torch.core import strategies as tst
 from repro_torch.fitness import bbob as tb
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-11
 JAX_IMPL = {"eager": "xla", "eager_unfused": "xla_unfused"}

@@ -21,6 +21,7 @@ from repro.fitness import bbob as jb
 from repro_torch.core import ladder as tladder
 from repro_torch.core import strategies as tst
 from repro_torch.fitness import bbob as tb
+from torch_threads import one_thread  # noqa: F401
 
 N = 4
 JAX_IMPL = {"eager": "xla", "eager_unfused": "xla_unfused", "auto": "auto"}

@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 
 from repro_torch.kernels import cma_gen, cma_update
+from torch_threads import one_thread  # noqa: F401
 
 LAM_START, KMAX = 12, 8
 SHAPES = ([(1, LAM_START << KMAX, 1000), (1, LAM_START << KMAX, 40),

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 
 from repro_torch.kernels import ref, rwkv6_wkv
+from torch_threads import one_thread  # noqa: F401
 
 SOURCE = Path(rwkv6_wkv.__file__).parent / "csrc" / "rwkv6_wkv.cu"
 #: an H100's SMs, and the shared memory of an SM and of a block (bytes;
