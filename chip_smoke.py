@@ -69,19 +69,22 @@ then are their own).
    the element's row, its last axis; the phase's line gives each kernel's
    worst bf16 element as a share of its limit).  The backward kernels:
    flash attention's (row 11) at qwen2-0.5b's training shape (4, 1024,
-   14, 2, 64), a ragged S = 129 with window 100, D = 32, D = 128 and a
-   non-causal call, each from the plain o and row statistic, after the
-   forward's statistic (the training launch, whose o must equal the
-   serving launch's bit for bit) is held against the plain one; the
-   WKV's (row 12) at rwkv6-3b's (4, 1024, 40, 64), D = 32 and 128, each
-   with an initial state and a final-state gradient and without either;
+   14, 2, 64), a ragged S = 129 with window 100, D = 32, D = 128, a
+   non-causal call, a ragged S = 333 over several of the bf16 passes'
+   128-row tiles with a query group of 3 and a window of 200 with a group
+   of 5, each from the plain o and row statistic, after the forward's
+   statistic (the training launch, whose o must equal the serving
+   launch's bit for bit) is held against the plain one; the WKV's (row
+   12) at rwkv6-3b's (4, 1024, 40, 64), D = 32 (two key-dim slices, once
+   over 16 chunks) and 128, each with an initial state and a final-state
+   gradient and without either;
    float32 within 1e-4 of each output's largest |value| (``LM_GRAD_TOL``),
    bf16 outputs element by element as the forward's but with each row's
    largest taken at least 1e-2 of the tensor's (``LM_GRAD_ROW_SHARE``:
    the first query's dq is zero in exact arithmetic), the f32 outputs of
    a bf16 call (dlogw, du, d state) as float32; each bit-identical on a
-   second launch into NaN-filled memory, its scratch (row sums; the
-   chunks' states) poisoned too.  At the campaign shapes
+   second launch into NaN-filled memory, its scratch (row statistics and
+   per-head partials; the chunks' states and pair terms) poisoned too.  At the campaign shapes
    (phases 9-9d stack their members on the slot axis): S = 16 members at
    (λ, n) = (12·2ᵏ, 40), k = 0…8, with the (1, 2) menu's real per-member
    coefficients (f1 and f2 × instances 1-4 × 2 runs, one member made
@@ -365,7 +368,10 @@ then are their own).
    bytes (inputs once, gradients once) or the operations (row 11: 10·D a
    causal pair over 989 TFLOP/s for bf16 inputs, 67 for f32; row 12:
    B·H·S·(10·D² + 160·D) at the f32 FMA rate), the library time one
-   autograd backward of SDPA (row 11; row 12 none).  Rows 8 and 10 also
+   autograd backward of SDPA (row 11, the median of 20 launches: the
+   backend PyTorch picks with ``enable_gqa``, named, and the flash backend
+   forced on K and V expanded to the query heads outside the timed call,
+   the row's ``library_ms`` the faster; row 12 none).  Rows 8 and 10 also
    give ``tools/profile_update.py``'s
    ``profile_call`` over 20 calls beside the wall-clock ms: each kernel's
    device µs per launch and the launches ``torch.profiler`` recorded, the
@@ -529,7 +535,10 @@ NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
 #: du, d state) by the float32 bound; the shapes: qwen2-0.5b's training
 #: shape, a ragged S with a window, D = 32 and 128, a non-causal call;
 #: rwkv6-3b's training shape and D = 32 and 128, each with an initial
-#: state and a final-state gradient and without either
+#: state and a final-state gradient and without either; the edges of the
+#: bf16 tiling: a ragged S over several 128-row tiles with a query group of
+#: 3, a window with a group of 5 (each pass-3 block takes one query head),
+#: and D = 32's two key-dim slices over 16 chunks
 LM_GRAD_TOL = 1e-4
 #: a bf16 gradient's rows are held to their own largest |value| as the
 #: forward's are, but to no less than LM_GRAD_ROW_SHARE of the tensor's:
@@ -543,9 +552,12 @@ FLASH_BWD_CHECKS = [dict(B=4, S=1024, H=14, Hk=2, D=64, window=0, causal=True),
                     dict(B=1, S=256, H=4, Hk=4, D=32, window=0, causal=True),
                     dict(B=1, S=384, H=8, Hk=1, D=128, window=0, causal=True),
                     dict(B=1, S=256, H=4, Hk=2, D=64, window=0,
-                         causal=False)]
+                         causal=False),
+                    dict(B=2, S=333, H=6, Hk=2, D=64, window=0, causal=True),
+                    dict(B=1, S=300, H=5, Hk=1, D=64, window=200,
+                         causal=True)]
 WKV_BWD_CHECKS = [dict(B=4, S=1024, H=40, D=64), dict(B=1, S=64, H=2, D=32),
-                  dict(B=1, S=128, H=1, D=128)]
+                  dict(B=1, S=128, H=1, D=128), dict(B=2, S=256, H=3, D=32)]
 #: phase 13a: the dense descent (``cmaes.run``) at n = 1000 on f8, default
 #: λ, 32 generations; and card against CPU on f1 at n = 8 with λ = 16
 #: (μ = 8 = n: with μ < n the first covariances have a repeated
@@ -579,7 +591,7 @@ TRAIN_CPU_TOL = 1e-4
 #: rows 6 and 8, HGMMA (wgmma) for row 9's bf16 products
 TENSOR_SASS = {"cma_gen_sample": "DMMA", "cma_sample": "DMMA",
                "cma_gen_update": "DMMA", "cma_update": "DMMA",
-               "flash_attention": "HGMMA"}
+               "flash_attention": "HGMMA", "flash_attention_bwd": "HGMMA"}
 #: phase 4c: float32 campaigns on f1
 F32 = dict(n=40, budget=10_000)
 #: the (backend, impl) runs of phase 4c that the CPU repeats (the ladder's
@@ -3349,7 +3361,10 @@ CSRC_KERNELS = ("tile_kernel", "stream_kernel", "eval_reduce_kernel",
                 "t_kernel", "whiten_kernel", "paths_kernel",
                 "epilogue_kernel", "rank_mu_epilogue", "flash_f32_kernel",
                 "flash_bf16_kernel", "wkv6_kernel", "flash_bwd_dq_kernel",
-                "flash_bwd_dkv_kernel", "wkv_bwd_kernel", "du_reduce_kernel")
+                "flash_bwd_dkv_kernel", "flash_bwd_prep_kernel",
+                "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                "flash_bwd_sum_kernel", "wkv_bwd_pairs_kernel",
+                "wkv_bwd_sweep_kernel", "du_reduce_kernel")
 #: one of them in a profiled kernel's name, demangled (a whole word) or
 #: mangled (after its length)
 CSRC_KERNEL_NAME = re.compile("|".join(
@@ -3767,8 +3782,11 @@ def lm_grad_checks(dev, errs):
             got = bwd()
             want = ref.flash_attention_bwd(q, k, v, o_ref, lse_ref, do, **kw)
             e = grads_compare("flash_attention_bwd", got, want)
-            delta = c["B"] * c["S"] * c["H"] * 4 // q.element_size()
-            repeat_on_poison("flash_attention_bwd", bwd, got, scratch=delta)
+            scratch = flash_attention.bwd_scratch_floats(
+                dtype, c["B"], c["S"], c["S"], c["H"], c["D"]) * 4 \
+                // q.element_size()
+            repeat_on_poison("flash_attention_bwd", bwd, got,
+                             scratch=scratch)
             record("flash_attention_bwd", e, dtype, shape, **kw,
                    lse_max_rel_err=e_lse[1])
     for c in WKV_BWD_CHECKS:
@@ -3779,7 +3797,7 @@ def lm_grad_checks(dev, errs):
             args = [a[k] for k in ("r", "k", "v", "logw", "u")]
             do, ds = b["r"], 0.2 * b["state"]
             B, S, H, D = shape
-            states = B * H * (S // ref.WKV_CHUNK) * D * D * 4 \
+            scratch = rwkv6_wkv.bwd_scratch_floats(B, S, H, D) * 4 \
                 // do.element_size()
             for state, dstate in ((a["state"], ds), (None, None)):
                 def bwd():
@@ -3787,7 +3805,7 @@ def lm_grad_checks(dev, errs):
                 got = bwd()
                 want = ref.wkv_backward(*args, state, do, dstate)
                 e = grads_compare("wkv6_backward", got, want)
-                repeat_on_poison("wkv6_backward", bwd, got, scratch=states)
+                repeat_on_poison("wkv6_backward", bwd, got, scratch=scratch)
                 record("wkv6_backward", e, dtype, shape,
                        initial_state=state is not None)
     torch.cuda.synchronize()
@@ -4392,11 +4410,63 @@ def lm_kernel_rows(dev, errs, launches):
     return rows
 
 
+def median_ms(fn, windows=20, per_window=5) -> float:
+    """Median over ``windows`` windows of the mean ms of ``per_window``
+    launches each, after a warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(per_window):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_window)
+    return float(np.median(times))
+
+
+def sdpa_bwd_library(q, k, v, do):
+    """Row 11's yardstick on (B, H, S, D) tensors (q, k, v requiring grad):
+    the autograd backward of one causal SDPA call, timed by ``median_ms``,
+    with ``enable_gqa`` on the backend PyTorch picks (named, from
+    ``torch._fused_sdp_choice``), and, for fp16 and bf16 inputs, with the
+    flash backend forced over K and V expanded to the query heads outside
+    the timed call (its dK and dV are then per query head, not summed over
+    the group); ``ms`` is the faster.  Used nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        picked = SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, enable_gqa=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        picked = f"unknown ({type(e).__name__})"
+    out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    gqa_ms = median_ms(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                                   retain_graph=True))
+    if q.dtype not in (torch.float16, torch.bfloat16):
+        return {"backend": picked, "gqa_ms": gqa_ms, "flash_ms": None,
+                "flash": "the flash backend takes fp16 and bf16 only",
+                "ms": gqa_ms}
+    rep = q.shape[1] // k.shape[1]
+    ke, ve = (x.detach().repeat_interleave(rep, dim=1).requires_grad_()
+              for x in (k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out_f = sdpa(q, ke, ve, is_causal=True)
+    flash_ms = median_ms(lambda: torch.autograd.grad(out_f, (q, ke, ve), do,
+                                                     retain_graph=True))
+    return {"backend": picked, "gqa_ms": gqa_ms, "flash_ms": flash_ms,
+            "ms": min(gqa_ms, flash_ms)}
+
+
 def train_kernel_rows(dev, errs, launches):
     """Rows 11 and 12 of the ``kernels`` line: per training path its
     launches and, at the path's shape and dtype, the backward kernel's,
     the plain version's and (row 11) the autograd backward of one SDPA
-    call's times, and the bound (module docstring, phase 5)."""
+    call's times (``sdpa_bwd_library``), and the bound (module docstring,
+    phase 5)."""
     def flash_bwd_work(B, S, H, Hk, D, dtype):
         q, k, v = flash_inputs(B, S, H, Hk, D, dtype, dev)
         do = flash_inputs(B, S, H, 1, D, dtype, dev, seed=1)[0]
@@ -4409,17 +4479,18 @@ def train_kernel_rows(dev, errs, launches):
                               + 4 * B * S * H, dtype)
         qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_()
                       for a in (q, k, v))
-        out = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        dot = do.transpose(1, 2).contiguous()
+        library = sdpa_bwd_library(qt, kt, vt,
+                                   do.transpose(1, 2).contiguous())
+
+        def kern():
+            return flash_attention.flash_attention_bwd(q, k, v, o, lse, do)
         return {"shape": [B, S, H, Hk, D], "dtype": str(dtype),
-                "ms": time_ms(lambda: flash_attention.flash_attention_bwd(
-                    q, k, v, o, lse, do)),
+                "ms": time_ms(kern),
                 "plain_ms": time_ms(lambda: ref.flash_attention_bwd(
                     q, k, v, o, lse, do), reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lambda: torch.autograd.grad(
-                    out, (qt, kt, vt), dot, retain_graph=True))}
+                "library_ms": library["ms"], "library": library,
+                "profile": profile_update.profile_call(kern, 10)}
 
     def wkv_bwd_work(B, S, H, D, dtype):
         a = wkv_inputs(B, S, H, D, dtype, dev)

@@ -55,7 +55,11 @@
 
 #include <cstdint>
 
+#include "wgmma_tma.cuh"
+
 namespace {
+
+using namespace tc;
 
 // ---- float32: the scalar kernel --------------------------------------------
 
@@ -234,204 +238,11 @@ constexpr int BQ16 = WG_ROWS * CONSUMERS;   // q rows per block
 constexpr int BKV16 = 64;                   // K/V rows per stage
 constexpr int KV_STAGES = 3;
 constexpr int TC_THREADS = CONSUMERS * 128 + 32;
-constexpr float LOG2E = 1.4426950408889634f;
 
-// A tile of 64 rows of D bf16 in shared memory: D/PW panels of 64 rows of
-// PW elements (one swizzle row each), as one TMA box per panel lays them.
+// A block's shared memory: the consumers' Q tiles and the K and V rings,
+// and 1 KB to align the first tile for the 128-byte swizzle
 template <int D>
-struct Tile {
-  static constexpr int PW = D < 64 ? D : 64;
-  static constexpr int PANELS = D / PW;
-  static constexpr int ROW_BYTES = PW * 2;                  // 64 or 128
-  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
-  static constexpr int BYTES = PANELS * PANEL_BYTES;
-  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : 2;  // wgmma swizzle
-  static constexpr int SMEM = (CONSUMERS + 2 * KV_STAGES) * BYTES + 1024;
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of parity ``parity`` has completed; a phase that
-// never completes (a lost arrival) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  long long spins = 0;
-  do {
-    if (++spins > (1ll << 32)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start, leading and stride byte offsets
-// (16-byte units) and the swizzle mode.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across the asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-template <int D>
-__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
-                                       const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 32) {
-    wgmma_rs_m64n32(o, a, db, 1);
-  } else if constexpr (D == 64) {
-    wgmma_rs_m64n64(o, a, db, 1);
-  } else {
-    wgmma_rs_m64n128(o, a, db, 1);
-  }
-}
-
-// 2^x by the SFU (2 ulp; subnormal results flush to 0, as P's do anyway
-// once rounded to bf16)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr int SMEM = (CONSUMERS + 2 * KV_STAGES) * Tile<D>::BYTES + 1024;
 
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
@@ -486,21 +297,15 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
     if (lane == 0) {
       mbar_expect_tx(q_full, CONSUMERS * Tl::BYTES);
       for (int w = 0; w < CONSUMERS; ++w)
-        for (int p = 0; p < Tl::PANELS; ++p)
-          tma_load_4d(q_tile(w) + p * Tl::PANEL_BYTES, &tq, p * Tl::PW, h,
-                      q0 + w * WG_ROWS, b, q_full);
+        tma_tile<D>(q_tile(w), &tq, h, q0 + w * WG_ROWS, b, q_full);
       for (int it = 0; it < n_kv; ++it) {
         const int st = it % KV_STAGES;
         if (it >= KV_STAGES) mbar_wait(empty(st), ((it / KV_STAGES) - 1) & 1);
         const int kv0 = kv_first + it * BKV16;
         mbar_expect_tx(k_full(st), Tl::BYTES);
-        for (int p = 0; p < Tl::PANELS; ++p)
-          tma_load_4d(k_tile(st) + p * Tl::PANEL_BYTES, &tk, p * Tl::PW, hk,
-                      kv0, b, k_full(st));
+        tma_tile<D>(k_tile(st), &tk, hk, kv0, b, k_full(st));
         mbar_expect_tx(v_full(st), Tl::BYTES);
-        for (int p = 0; p < Tl::PANELS; ++p)
-          tma_load_4d(v_tile(st) + p * Tl::PANEL_BYTES, &tv, p * Tl::PW, hk,
-                      kv0, b, v_full(st));
+        tma_tile<D>(v_tile(st), &tv, hk, kv0, b, v_full(st));
       }
     }
     return;
@@ -516,7 +321,6 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
   const int hi_w = q0w >= S ? 0 : (causal ? min(Skv, q_last_w + 1) : Skv);
   const int lo_w = window > 0 ? max(0, q0w - window + 1) : 0;
   const float sl2 = scale * LOG2E;
-  constexpr uint32_t SBO = 8 * Tl::ROW_BYTES;
 
   float acc[D / 2];
 #pragma unroll
@@ -538,10 +342,8 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk * 16) / Tl::PW * Tl::PANEL_BYTES +
-                             (kk * 16) % Tl::PW * 2;
-        wgmma_ss_m64n64(s, desc(q_tile(wg) + off, 16, SBO, Tl::LAYOUT),
-                        desc(k_tile(st) + off, 16, SBO, Tl::LAYOUT), kk > 0);
+        wgmma_ss_m64n64(s, desc_k<D>(q_tile(wg), kk),
+                        desc_k<D>(k_tile(st), kk), kk > 0);
       }
       wgmma_commit_wait();
       fence_regs(s);
@@ -585,34 +387,22 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i / 2) % 2];
-      // P as the A operand of four k16 steps (the accumulator layout of
-      // two n8 blocks is the A fragment of one k16 step), split into a bf16
-      // head and the bf16 rounding of what the head leaves: bf16 P alone
-      // rounds each weight by up to 2^-9, which puts elements of o near
-      // zero past the element-wise bf16 check (|got - want| <= 2e-2 |want|
-      // + 1e-3 of the row's largest); the pair carries P to about 2^-17
+      // P as the A operand of four k16 steps, split into a bf16 head and
+      // the bf16 rounding of the rest (split_frags): bf16 P alone rounds
+      // each weight by up to 2^-9, which puts elements of o near zero past
+      // the element-wise bf16 check (|got - want| <= 2e-2 |want| + 1e-3 of
+      // the row's largest)
       uint32_t pa[4][4], pl[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float x0 = s[8 * j + 2 * q];
-          const float x1 = s[8 * j + 2 * q + 1];
-          pa[j][q] = pack_bf16(x0, x1);
-          const float2 hd = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&pa[j][q]));
-          pl[j][q] = pack_bf16(x0 - hd.x, x1 - hd.y);
-        }
+      split_frags(s, pa, pl);
 
       mbar_wait(v_full(st), ph);
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint64_t dv = desc(v_tile(st) + j * 16 * Tl::ROW_BYTES,
-                                 Tl::PANEL_BYTES, SBO, Tl::LAYOUT);
-        pv_mma<D>(acc, pa[j], dv);
-        pv_mma<D>(acc, pl[j], dv);
+        const uint64_t dv = desc_t<D>(v_tile(st), j);
+        rs_mma<D>(acc, pa[j], dv);
+        rs_mma<D>(acc, pl[j], dv);
       }
       wgmma_commit_wait();
       fence_regs(acc);
@@ -646,53 +436,6 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
   }
 }
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-d map (D, heads, seq, B) of a (B, seq, heads, D) bf16 tensor, one
-// box = 64 rows of one head's panel of PW elements.
-template <int D>
-int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq,
-               int heads) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  using Tl = Tile<D>;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(D) * 2,
-      static_cast<cuuint64_t>(heads) * D * 2,
-      static_cast<cuuint64_t>(seq) * heads * D * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tl::PW), 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tl::ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Skv, int H, int Hk, int causal,
@@ -702,7 +445,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if ((err = tensor_map<D>(&tq, q, B, S, H)) != 0) return err;
   if ((err = tensor_map<D>(&tk, k, B, Skv, Hk)) != 0) return err;
   if ((err = tensor_map<D>(&tv, v, B, Skv, Hk)) != 0) return err;
-  const int smem = Tile<D>::SMEM;
+  const int smem = SMEM<D>;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);

@@ -19,8 +19,11 @@ o, each row's log-sum-exp of the scaled logits (f32 (B, S, H)), and
 ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (no TPU
 counterpart: the JAX package's flash path differentiates with
 ``repro/models/flash_xla.py::_flash_bwd_impl``), counted under
-``"flash_attention_bwd"``.  ``FlashAttention`` is the autograd function
-over the pair; its plain version is ``ref.flash_attention_bwd``.
+``"flash_attention_bwd"``: bfloat16 on the tensor cores (a row-statistics
+pass, the dq pass, the dk/dv pass over one query head a block and the sum
+of each query group's per-head partials in head order), float32 on scalar
+FMAs.  ``FlashAttention`` is the autograd function over the pair; its
+plain version is ``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,23 @@ HEAD_DIMS = (32, 64, 128)
 #: the TPU kernel's KV block: non-causal attention needs S_kv a multiple
 #: of min(BKV, S_kv), as ``repro/kernels/flash_attention.py:128`` requires
 BKV = 128
+
+
+#: rows a block of the bf16 backward takes: its row-statistics table
+#: holds S rounded up to them (``csrc/flash_attention_bwd.cu``, BROWS)
+BWD_ROWS = 128
+
+
+def bwd_scratch_floats(dtype, B: int, S: int, Skv: int, H: int,
+                       D: int) -> int:
+    """f32 elements of ``flash_attention_bwd``'s scratch: float32, the row
+    sums do·o (B·S·H); bfloat16, the table of (lse·log2 e, do·o) over S
+    rounded up to ``BWD_ROWS`` and the per-head f32 partials of dk and dv
+    (2·B·S_kv·H·D)."""
+    if dtype == torch.float32:
+        return B * S * H
+    Sp = -(-S // BWD_ROWS) * BWD_ROWS
+    return 2 * B * H * Sp + 2 * B * Skv * H * D
 
 
 def check_contract(causal: bool, Skv: int) -> None:
@@ -101,8 +121,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output
     gradient ``do``, from the forward's o and lse; the gradients have the
-    inputs' dtype.  One call: two launches (dq with the row sums
-    do·o into scratch, then dk and dv), counted once."""
+    inputs' dtype.  One call, counted once: float32 two launches (dq with
+    the row sums do·o into scratch, then dk and dv), bfloat16 four (the
+    row statistics, dq, per-head partials of dk and dv, their sum)."""
     B, S, H, D, Skv, Hk = _check(q, k, v, causal)
     dt, dev = q.dtype, q.device
     qshape, kshape = (B, S, H, D), (B, Skv, Hk, D)
@@ -118,12 +139,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    delta = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    scratch = torch.empty(bwd_scratch_floats(dt, B, S, Skv, H, D),
+                          dtype=torch.float32, device=dev)
     fn = _build.function("flash_attention_bwd", "flash_attention_bwd", dt,
                          _BWD_ARGS)
     _build.launch(fn, "flash_attention_bwd", dev, *ptrs, dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, S, Skv,
-                  H, Hk, D, int(bool(causal)), int(window), D ** -0.5)
+                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, S,
+                  Skv, H, Hk, D, int(bool(causal)), int(window), D ** -0.5)
     return dq, dk, dv
 
 

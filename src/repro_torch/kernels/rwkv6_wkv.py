@@ -18,10 +18,12 @@ stream without synchronising.  The launch is counted under
 
 For training, ``wkv6_backward`` launches ``csrc/rwkv6_wkv_bwd.cu`` (no TPU
 counterpart: the JAX package differentiates ``wkv_chunked`` by autodiff),
-counted under ``"wkv6_backward"``; it recomputes the chunks' entry states
-into a scratch buffer of the call (B·H·S/16·D·D f32), so the forward saves
-only its inputs.  ``WKV6`` is the autograd function over the pair; its
-plain version is ``ref.wkv_backward``.
+counted under ``"wkv6_backward"``: the state-free pair terms of every
+chunk at once, then a sweep split over key dims (D/16 blocks a head, one
+cluster) that recomputes the chunks' entry states into a scratch buffer of
+the call (B·H·S/16·D·D f32), so the forward saves only its inputs.
+``WKV6`` is the autograd function over the pair; its plain version is
+``ref.wkv_backward``.
 """
 from __future__ import annotations
 
@@ -34,8 +36,20 @@ from repro_torch.kernels.ref import WKV_CHUNK
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_BWD_ARGS = [_P] * 16 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 15 + [_I] * 4 + [_P]
 HEAD_DIMS = (32, 64, 128)
+#: f32 elements of a chunk's state-free pair terms in the backward's
+#: scratch: A (16 × 16), the bonus and its gradient (16 each)
+#: (``csrc/rwkv6_wkv_bwd.cu``, PAIR)
+BWD_PAIR = WKV_CHUNK * WKV_CHUNK + 2 * WKV_CHUNK
+
+
+def bwd_scratch_floats(B: int, S: int, H: int, D: int) -> int:
+    """f32 elements of ``wkv6_backward``'s scratch: every chunk's entry
+    state (B·H·S/16·D·D), every chunk's pair terms, dA's shares of dqt and
+    dki (2·16·D a chunk) and du's per-(b, h) sums (B·H·D)."""
+    n = B * H * (S // WKV_CHUNK)
+    return n * (D * D + BWD_PAIR + 2 * WKV_CHUNK * D) + B * H * D
 
 
 def _check_shape(r):
@@ -82,9 +96,9 @@ def wkv6_backward(r, k, v, logw, u, state, do, dstate=None,
     """Gradients of ``wkv6_forward`` for the output gradient ``do`` (r's
     dtype) and the final state's ``dstate`` (f32, None: zero): (dr, dk,
     dv) in r's dtype, dlogw (B, S, H, D), du (H, D) and d(initial state)
-    (B, H, D, D, None unless ``need_dstate``), all f32.  One call: the
-    backward launch and a launch summing du over the batch in order,
-    counted once."""
+    (B, H, D, D, None unless ``need_dstate``), all f32.  One call, counted
+    once: the pair terms, the split sweep and a launch summing du over the
+    batch in order."""
     B, S, H, D = _check_shape(r)
     dt, dev, f32 = r.dtype, r.device, torch.float32
     shape = (B, S, H, D)
@@ -104,14 +118,13 @@ def wkv6_backward(r, k, v, logw, u, state, do, dstate=None,
     dlogw = torch.empty(shape, dtype=f32, device=dev)
     du = torch.empty((H, D), dtype=f32, device=dev)
     ds0 = torch.empty(sshape, dtype=f32, device=dev) if need_dstate else None
-    du_part = torch.empty((B, H, D), dtype=f32, device=dev)
-    states = torch.empty((B * H, S // WKV_CHUNK, D, D), dtype=f32,
-                         device=dev)
+    scratch = torch.empty(bwd_scratch_floats(B, S, H, D), dtype=f32,
+                          device=dev)
     fn = _build.function("rwkv6_wkv_bwd", "wkv6_backward", dt, _BWD_ARGS)
     _build.launch(fn, "wkv6_backward", dev, *ins, dr.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
                   du.data_ptr(), 0 if ds0 is None else ds0.data_ptr(),
-                  du_part.data_ptr(), states.data_ptr(), B, S, H, D)
+                  scratch.data_ptr(), B, S, H, D)
     return dr, dk, dv, dlogw, du, ds0
 
 

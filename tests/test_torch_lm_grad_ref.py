@@ -13,6 +13,13 @@ package, on the CPU, on inputs made with numpy.
 * ``ref.wkv_backward`` (autograd through ``ref.wkv_chunked``) against
   ``jax.vjp`` of ``repro.models.rwkv6.wkv_chunked`` with an initial state
   and a final-state cotangent.
+* the order of work of the backward kernels, written out here in plain
+  torch (``_flash_split_bwd``, ``_wkv_split_bwd``): attention's dk and dv
+  as per-query-head partials summed in head order; the WKV's state-free
+  pair terms of every chunk ahead, a reverse sweep per 16-key-dim slice
+  over rows recomputed by the slice's own forward sweep, and dv's shares
+  summed in slice order.  Held to the plain versions at 1e-5 of the
+  largest |value| and to JAX at the tolerances below.
 * the autograd functions over the CUDA kernels refuse CPU tensors.
 
 Every comparison is in float32, relative to the largest |value| of the
@@ -162,3 +169,158 @@ def test_autograd_functions_refuse_cpu_tensors():
         t_flash.flash_attention_bwd(q, k, v, q, q[..., 0], q)
     with pytest.raises(ValueError, match="CUDA"):
         t_wkv.wkv6_backward(r, kk, vv, logw, u, s0, r)
+
+
+def _flash_split_bwd(q, k, v, o, lse, do, causal, window):
+    """``csrc/flash_attention_bwd.cu``'s bf16 order of work: P from the
+    row statistic, dS = P (dP − do·o), dq per query row, and dk, dv as one
+    f32 partial per query head, summed over each query group in head
+    order."""
+    B, S, H, D = q.shape
+    Skv, Hk = k.shape[1], k.shape[2]
+    rep, scale = H // Hk, D ** -0.5
+    kx, vx = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+    i = torch.arange(S)[:, None]
+    j = torch.arange(Skv)[None, :]
+    seen = torch.ones((S, Skv), dtype=torch.bool)
+    if causal:
+        seen &= j <= i
+    if window > 0:
+        seen &= j > i - window
+    s = torch.einsum("bihd,bjhd->bhij", q, kx) * scale
+    p = torch.where(seen, torch.exp(s - lse.permute(0, 2, 1)[..., None]),
+                    0.0)
+    dp = torch.einsum("bihd,bjhd->bhij", do, vx)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhij,bjhd->bihd", ds, kx) * scale
+    dkp = (torch.einsum("bhij,bihd->bjhd", ds, q) * scale).reshape(
+        B, Skv, Hk, rep, D)
+    dvp = torch.einsum("bhij,bihd->bjhd", p, do).reshape(B, Skv, Hk, rep, D)
+    dk, dv = dkp[..., 0, :], dvp[..., 0, :]
+    for r in range(1, rep):
+        dk, dv = dk + dkp[..., r, :], dv + dvp[..., r, :]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("B,S,H,Hk,D,window,causal", [
+    (2, 150, 6, 2, 16, 0, True),     # ragged S, a query group of 3
+    (1, 200, 7, 1, 32, 40, True),    # MQA, a group of 7, sliding window
+    (1, 128, 4, 2, 16, 0, False),    # non-causal
+])
+def test_flash_bwd_head_partials(B, S, H, Hk, D, window, causal):
+    q, k, v, do = _flash_inputs(B, S, H, Hk, D, 17)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    kw = dict(causal=causal, window=window)
+    o = tref.flash_attention(tq, tk, tv, **kw)
+    lse = tref.flash_attention_lse(tq, tk, **kw)
+    got = _flash_split_bwd(tq, tk, tv, o, lse, tdo, causal, window)
+    want = tref.flash_attention_bwd(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+    _, vjp = jax.vjp(lambda a, b, c: flash_xla.flash_mha(
+        a, b, c, causal, window), *map(jnp.asarray, (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do))):
+        _close(g, w, 2e-5)
+
+
+def _wkv_split_bwd(r, k, v, logw, u, s0, do, ds, kd=16):
+    """``csrc/rwkv6_wkv_bwd.cu``'s order of work: the state-free terms of
+    every chunk at once (A, dA, the bonus and its gradient, and dA's
+    shares of dqt and dki); per slice of ``kd`` key dims a forward sweep
+    of the slice's rows of the state (the chunks' entry rows) and a
+    reverse sweep giving dr, dk, dlogw, du and dS₀ of its key dims and its
+    share of dv; dv the state-free terms plus the slices' shares in slice
+    order."""
+    B, S, H, D = r.shape
+    C, n = WKV_CHUNK, S // WKV_CHUNK
+
+    def chunks(x):
+        return x.reshape(B, n, C, H, D)
+    r, k, v, w, do = map(chunks, (r, k, v, logw, do))
+    Lc = torch.cumsum(w, dim=2)
+    Lp = Lc - w
+    Ll = Lc[:, :, -1]                                    # (B, n, H, D)
+    qt, ki = r * torch.exp(Lp), k * torch.exp(-Lc)
+    ko = k * torch.exp(Ll[:, :, None] - Lc)
+    below = torch.tril(torch.ones((C, C), dtype=torch.bool), diagonal=-1)
+    A = torch.where(below, torch.einsum("bnthd,bnjhd->bnhtj", qt, ki), 0.0)
+    dA = torch.where(below, torch.einsum("bnthd,bnjhd->bnhtj", do, v), 0.0)
+    bonus = torch.einsum("bnthd,hd,bnthd->bnht", r, u, k)
+    dbon = torch.einsum("bnthd,bnthd->bnht", do, v)
+    dv = (bonus.permute(0, 1, 3, 2)[..., None] * do
+          + torch.einsum("bnhtj,bnthc->bnjhc", A, do))
+    dqt_free = torch.einsum("bnhtj,bnjhd->bnthd", dA, ki)
+    dki_free = torch.einsum("bnhtj,bnthd->bnjhd", dA, qt)
+    shares, dr, dk, dlogw, ds0 = [], [], [], [], []
+    du = torch.zeros_like(u)
+    for q in range(D // kd):
+        sl = slice(q * kd, (q + 1) * kd)
+        rows, entry = s0[:, :, sl], []
+        for i in range(n):
+            entry.append(rows)
+            rows = (torch.exp(Ll[:, i, :, sl])[..., None] * rows
+                    + torch.einsum("bthd,bthc->bhdc", ko[:, i, :, :, sl],
+                                   v[:, i]))
+        dS = ds[:, :, sl]
+        share, g_r, g_k, g_w = ([None] * n for _ in range(4))
+        for i in reversed(range(n)):
+            S_i, dec = entry[i], torch.exp(Ll[:, i, :, sl])
+            q_, k_, o_ = qt[:, i, ..., sl], ki[:, i, ..., sl], ko[:, i, ..., sl]
+            dko = torch.einsum("bhdc,bthc->bthd", dS, v[:, i])
+            dqs = torch.einsum("bhdc,bthc->bthd", S_i, do[:, i])
+            share[i] = torch.einsum("bthd,bhdc->bthc", o_, dS)
+            dqt = dqt_free[:, i, ..., sl] + dqs
+            dki = dki_free[:, i, ..., sl]
+            bu = dbon[:, i].permute(0, 2, 1)[..., None] * u[:, sl]
+            g_r[i] = (dqt * torch.exp(Lp[:, i, ..., sl])
+                      + bu * k[:, i, ..., sl])
+            g_k[i] = (dki * torch.exp(-Lc[:, i, ..., sl])
+                      + dko * torch.exp(Ll[:, i, None, :, sl]
+                                        - Lc[:, i, ..., sl])
+                      + bu * r[:, i, ..., sl])
+            dlp = dqt * q_
+            dlc = dlp - dki * k_ - dko * o_
+            dll = dec * (dS * S_i).sum(-1) + (dko * o_).sum(1)
+            g_w[i] = (torch.flip(torch.cumsum(torch.flip(dlc, [1]), 1), [1])
+                      - dlp + dll[:, None])
+            du[:, sl] += (dbon[:, i].permute(0, 2, 1)[..., None]
+                          * r[:, i, ..., sl] * k[:, i, ..., sl]).sum((0, 1))
+            dS = (dec[..., None] * dS
+                  + torch.einsum("bthd,bthc->bhdc", q_, do[:, i]))
+        shares.append(torch.stack(share, 1))
+        dr.append(torch.stack(g_r, 1))
+        dk.append(torch.stack(g_k, 1))
+        dlogw.append(torch.stack(g_w, 1))
+        ds0.append(dS)
+    for sh in shares:
+        dv = dv + sh
+
+    def whole(parts):
+        return torch.cat(parts, -1).reshape(B, S, H, D)
+    return (whole(dr), whole(dk), dv.reshape(B, S, H, D), whole(dlogw), du,
+            torch.cat(ds0, 2))
+
+
+@pytest.mark.parametrize("B,S,H,D,final", [
+    (1, WKV_CHUNK * 3, 2, 32, True),     # D / 16 = 2 slices
+    (2, WKV_CHUNK * 4, 1, 64, True),     # 4 slices
+    (1, WKV_CHUNK * 2, 1, 128, False),   # 8 slices, no final gradient
+])
+def test_wkv_bwd_key_dim_split(B, S, H, D, final):
+    r, k, v, logw, u, s0, do, ds = _wkv_inputs(B, S, H, D, 19)
+    t = [torch.from_numpy(x) for x in (r, k, v, logw, u, s0)]
+    tds = torch.from_numpy(ds) if final else torch.zeros(B, H, D, D)
+    got = _wkv_split_bwd(*t, torch.from_numpy(do), tds)
+    want = tref.wkv_backward(*t, torch.from_numpy(do),
+                             tds if final else None)
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, name
+        _close(g, w, 1e-5)
+    (_, js), vjp = jax.vjp(jr.wkv_chunked,
+                          *map(jnp.asarray, (r, k, v, logw, u, s0)))
+    jwant = vjp((jnp.asarray(do),
+                 jnp.asarray(ds) if final else jnp.zeros_like(js)))
+    for name, g, w in zip(names, got, jwant):
+        _close(g, w, 1e-4)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Per-launch device times of the generation kernels: the update (row 6),
 the sample kernels (rows 1-4) and the counter stream alone (row 5), the
-grouped sample kernel (row 7), the rank-μ update (row 8) and the RWKV-6
-WKV kernel (row 10).
+grouped sample kernel (row 7), the rank-μ update (row 8), the RWKV-6
+WKV kernel (row 10) and the backward kernels (rows 11-12).
 
     python3 tools/profile_update.py [--src DIR] [--calls N]
 
@@ -26,7 +26,11 @@ n = 1000; row 8 at chip_smoke.py phase 2's
 each beside its library call (``torch.matmul``, as ``chip_smoke.py`` times
 it); row 10 at rwkv6-3b's prefill (4, 1024, 40 heads, D = 64) in bfloat16
 and at the 2-layer card-vs-CPU check (2, 64, 40, 64) in float32, with an
-initial state.  Each call runs ``N`` times under
+initial state; rows 11 and 12 at the training paths' shapes in bfloat16
+(``chip_smoke.py`` 13b, 13c): flash attention's backward at (4, 1024, 14
+heads, 2 KV heads, D = 64) from the forward's o and row statistic, the
+WKV's at (4, 1024, 40, 64) from a zero state.  Each call runs ``N`` times
+under
 ``torch.profiler`` after a warm-up; one JSON line gives, per call and
 shape, each kernel's device µs per launch (its name as the profiler gives
 it; its own device time over the launches the profiler recorded, which
@@ -175,6 +179,29 @@ def wkv_calls(dev):
     return calls
 
 
+def lm_bwd_calls(dev):
+    """(label, call) of rows 11 and 12 at the training shapes: inputs
+    standard normal, logw and u as ``wkv_calls`` makes them."""
+    from repro_torch.kernels import flash_attention, rwkv6_wkv
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k, v = rn(4, 1024, 14, 64), rn(4, 1024, 2, 64), rn(4, 1024, 2, 64)
+    do = rn(4, 1024, 14, 64)
+    o, lse = flash_attention.flash_attention_stats(q, k, v)
+    r, kw, vw, dw = (rn(4, 1024, 40, 64) for _ in range(4))
+    logw = (-rn(4, 1024, 40, 64, dtype=torch.float32).exp()).clamp(-5.0,
+                                                                  -1e-6)
+    u = 0.1 * rn(40, 64, dtype=torch.float32)
+    return [("flash_attention_bwd 4,1024,14,2,64 bfloat16",
+             lambda: flash_attention.flash_attention_bwd(q, k, v, o, lse,
+                                                         do)),
+            ("wkv6_backward 4,1024,40,64 bfloat16",
+             lambda: rwkv6_wkv.wkv6_backward(r, kw, vw, logw, u, None, dw,
+                                             need_dstate=False))]
+
+
 def device_us(evt) -> float:
     """A profiler event's own device time in µs, over all its launches
     (the attribute's name varies across torch versions)."""
@@ -228,7 +255,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     out = {"src": args.src, "gpu": gpu, "update": {}, "sample": {},
-           "rank_mu": {}, "wkv": {}}
+           "rank_mu": {}, "wkv": {}, "lm_bwd": {}}
     for S, lam, n in UPDATE_SHAPES:
         a = update_inputs(S, lam, n, dev)
         out["update"][f"{S},{lam},{n}"] = profile_call(
@@ -239,6 +266,8 @@ def main() -> int:
         out["rank_mu"][label] = profile_call(fn, args.calls)
     for label, fn in wkv_calls(dev):
         out["wkv"][label] = profile_call(fn, args.calls)
+    for label, fn in lm_bwd_calls(dev):
+        out["lm_bwd"][label] = profile_call(fn, args.calls)
     print(json.dumps(out), flush=True)
     return 0
 
