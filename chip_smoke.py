@@ -9,7 +9,8 @@ Phases, one JSON line each with its seconds; any failed check raises
 finish within 1200 s on one H100; the cut depths below are made for that.
 After the build (phase 1) the phases run in six worker processes at
 once on the one card (``GROUPS``: a CMA-ES step is host-bound, so the
-workers share the card's idle time; the sixth trains), each group's
+workers share the card's idle time; the sixth trains and serves the LM
+families), each group's
 lines printed when all have ended, a failed worker stopping the others;
 then the kernels line (phase 5) runs alone.  ``--serial`` runs the
 groups one after another in one process instead (the phases' seconds
@@ -60,7 +61,15 @@ then are their own).
    (≤ 1e-4).  The flash attention kernel (row 9) at qwen2-0.5b's prefill
    (4, 2048, 14 heads, 2 KV heads, D=64), with windows 32 and 100 that
    start mid-tile, at a ragged S=129, at D=32 and D=128 and once
-   non-causal; the WKV kernel (row 10) at rwkv6-3b's prefill (4, 1024, 40
+   non-causal, at the head dims 96, 112 and 256: phi3-mini's
+   (1, 512, 32, 32, 96) and a ragged S = 333 with a window at each, and
+   at every prefill shape of phases 14a-14e (``family_flash_shapes``):
+   gemma3-4b's (4, 2048, 8, 4, 256) with its window of 1024 and without,
+   moonshot's (4, 1024, 16, 16, 128), zamba2's shared block (4, 2048, 32,
+   32, 112), musicgen's (4, 1024, 32, 32, 64) and llama-3.2-vision's (4,
+   1024, 64, 8, 128), each flash check bit-identical on a second launch
+   into NaN-filled memory;
+   the WKV kernel (row 10) at rwkv6-3b's prefill (4, 1024, 40
    heads, D=64) with a non-zero initial state, final state compared too,
    and at D=32 and 128, each with and without the initial state again
    bit-identical on a second launch into NaN-filled memory; both in
@@ -293,6 +302,36 @@ then are their own).
    the CPU from the same weights: the losses within 1e-5, every gradient
    leaf within 1e-4 of its largest |value| (``TRAIN_CPU_TOL``), forward
    and backward launches one each a layer a call;
+14a-14e. the other LM families served at their published widths, random
+   weights from seed 0, bf16 compute (``FAMILIES``): ``serve_gemma3_4b``
+   (all 34 layers: 5 units of 5 sliding-window layers and a global one,
+   and a 4-layer local tail; 4 prompts of 2048 tokens, past the 1024
+   window, and 32 new tokens, which wrap the rings), ``serve_moonshot``
+   (4 of 48 layers, 64 experts, top-6; 4 × 1024), ``serve_zamba2`` (13
+   of 81 layers: 2 units of 6 Mamba2 layers and the shared block, and a
+   tail layer; 4 × 2048), ``serve_musicgen`` (all 48 layers, 4 × 1024
+   stub frames) and ``serve_llama_vision`` (one unit, 5 of 100 layers,
+   bf16 weights; 4 × 1024 tokens and 1601 stub image embeddings); the
+   first three through ``Engine.generate`` over the launcher's config
+   after a warm-up (gemma3-4b, not cut in depth, first through the
+   launcher itself at its default 4 × 16 prompts),
+   the last two through ``lm.prefill`` and ``lm.decode_step`` (the
+   launcher refuses their stub inputs, as the JAX package's does): prefill
+   ms, decode ms a token, the phase's peak allocated memory (under 13b's
+   25.53 GB, ``FAMILY_PEAK_GB``), exactly one flash launch a causal
+   self-attention layer of a prefill (34, 4, 2, 48 and 4; the cross
+   layers take the plain path) and no other kernel, gemma's counted by
+   window (29 local, 5 global); the first decode step's logits against
+   ``lm.forward``'s last logits over the prompt and that step's input,
+   in bf16 and f32, within ``DECODE_TOL`` (MoE at capacity factor
+   n_experts / top-k, where nothing drops; its bf16 figure printed);
+14f. ``families_card_vs_cpu``: the eight configs of those families at
+   their smoke cuts with head dims 32 (gemma at 14 layers, zamba2 at 10,
+   so that tails exist), float32, 2 prompts of 50 tokens (past the smoke
+   window of 32), the same weights on the card and on the CPU: prefill logits,
+   every cache leaf and 6 teacher-forced decode steps' logits within
+   1e-4 of their largest |value|, one flash launch a causal
+   self-attention layer of the card's prefill and no other kernel;
 6. the strategies path at full width: ``ladder.run_concurrent`` (the
    K-Distributed program) on BBOB f8, n=1000, 512 virtual devices of 12
    rows (nine descents, λ = 12…3072, 511 active), float64, ``impl="auto"``,
@@ -362,7 +401,9 @@ then are their own).
    bytes over 3.35 TB/s, or the unmasked work over 989 TFLOP/s for row 9's
    bf16 inputs and 67 for f32 and for row 10, which computes in f32
    whatever its inputs' type; one SDPA call is row 9's library time, row 10
-   has none).  Rows 11 and 12 (the backward kernels, which replace no
+   has none); row 9 also at each shape of phases 14a-14f (gemma3-4b's
+   local layers with their window: the kept pairs bound it, and SDPA runs
+   with an explicit boolean mask).  Rows 11 and 12 (the backward kernels, which replace no
    TPU kernel: ``replaces`` names their JAX counterparts) at the training
    paths' shapes, 13b's and 13c's in bf16 and 13d's in f32: bound the
    bytes (inputs once, gradients once) or the operations (row 11: 10·D a
@@ -513,7 +554,17 @@ LM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 LM_ROW_FLOOR = 1e-3
 FLASH_CHECKS = [dict(B=4, S=2048, H=14, Hk=2, D=64, window=0),
                 dict(B=1, S=256, H=4, Hk=2, D=64, window=32),
-                dict(B=1, S=256, H=4, Hk=2, D=64, window=100)]
+                dict(B=1, S=256, H=4, Hk=2, D=64, window=100),
+                # head dims 96, 112 and 256: phi3-mini, and a ragged S
+                # with a window at each (phase 2 also checks every shape
+                # of phases 14a-14e, ``family_flash_shapes``)
+                dict(B=1, S=512, H=32, Hk=32, D=96, window=0),
+                dict(B=2, S=333, H=8, Hk=4, D=256, window=100),
+                dict(B=2, S=333, H=4, Hk=2, D=112, window=70),
+                dict(B=2, S=333, H=6, Hk=2, D=96, window=200)]
+#: the kernels line's path for phi3-mini's prefill shape, which phase 2
+#: checks and no path runs: its launches are null
+UNDRIVEN = "phase2_phi3_mini"
 WKV_CHECK = dict(B=4, S=1024, H=40, D=64)
 SERVE = {"qwen2-0.5b": dict(B=4, S=2048, new=32, kernel="flash_attention"),
          "rwkv6-3b": dict(B=4, S=1024, new=32, kernel="wkv6_forward")}
@@ -524,7 +575,23 @@ CARD_VS_CPU = dict(layers=2, B=2, S=50, steps=8, tol=1e-4)
 #: round differently in every layer, which over rwkv6-3b's 32 layers
 #: measured 2.9e-2 on the card (qwen2-0.5b: 6.1e-3)
 DECODE_TOL = {"qwen2-0.5b": {torch.bfloat16: 2e-2, torch.float32: 1e-4},
-              "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4}}
+              "rwkv6-3b": {torch.bfloat16: 5e-2, torch.float32: 1e-4},
+              # phases 14a-14e, rwkv6-3b's bounds: their first card
+              # run measured bf16 2.0e-2 (gemma3-4b, 34 layers), 1.8e-2
+              # (zamba2-7b), 1.4e-2 (musicgen-large), 9.1e-3
+              # (llama-3.2-vision-90b) and float32 at most 5.9e-6
+              "gemma3-4b": {torch.bfloat16: 5e-2, torch.float32: 1e-4},
+              # MoE: compared at capacity_factor = n_experts / top-k, where
+              # nothing drops; the bf16 figure is printed, not gated (None):
+              # the two paths' bf16 activations differ by rounding, and a
+              # near-tie between two experts can then route a token elsewhere
+              # (first card run: 7.8e-3)
+              "moonshot-v1-16b-a3b": {torch.bfloat16: None,
+                                      torch.float32: 1e-4},
+              "zamba2-7b": {torch.bfloat16: 5e-2, torch.float32: 1e-4},
+              "musicgen-large": {torch.bfloat16: 5e-2, torch.float32: 1e-4},
+              "llama-3.2-vision-90b": {torch.bfloat16: 5e-2,
+                                       torch.float32: 1e-4}}
 NN = dict(arch="qwen2-0.5b", B=4, S=512, lam_start=12, kmax_exp=1,
           max_evals=240)
 #: the backward kernels (rows 11-12) in phase 2: float32 within
@@ -585,6 +652,64 @@ TRAIN_RWKV = dict(arch="rwkv6-3b", B=4, S=1024, steps=4, layers=4,
 RESUME_TOL = 2e-3
 TRAIN_CPU = dict(B=4, S=64, head_dim=32, loss_tol=1e-5)
 TRAIN_CPU_TOL = 1e-4
+#: phases 14a-14e: the LM families beside qwen2 and rwkv6, served at their
+#: published widths (random weights from seed 0), cut in depth where the
+#: weights would pass 13b's peak beside the other workers: gemma3-4b all
+#: 34 layers (5 units and a 4-layer local tail; 2048-token prompts pass
+#: the 1024 window, so the rings fill, and 32 new tokens wrap them),
+#: moonshot 4 of 48 layers, zamba2 13 of 81 (2 units and a tail layer),
+#: musicgen all 48, llama-3.2-vision one unit (5 of 100 layers) with bf16
+#: weights; flash: the flash launches of a prefill (one per causal
+#: self-attention layer);
+#: ``engine``: through ``Engine.generate`` over the launcher's config, and
+#: the launcher itself where the depth is not cut (the JAX package's
+#: launcher refuses musicgen's and the vision model's stub inputs, so those
+#: run ``lm.prefill`` and ``lm.decode_step``)
+FAMILIES = {
+    "gemma3-4b": dict(phase="14a_serve_gemma3_4b", tag="serve_gemma3_4b",
+                      B=4, S=2048, new=32, layers=0, engine=True,
+                      flash=34),
+    "moonshot-v1-16b-a3b": dict(phase="14b_serve_moonshot",
+                                tag="serve_moonshot", B=4, S=1024, new=32,
+                                layers=4, engine=True, flash=4),
+    "zamba2-7b": dict(phase="14c_serve_zamba2", tag="serve_zamba2", B=4,
+                      S=2048, new=32, layers=13, engine=True, flash=2),
+    "musicgen-large": dict(phase="14d_serve_musicgen", tag="serve_musicgen",
+                           B=4, S=1024, new=32, layers=0, engine=False,
+                           flash=48),
+    "llama-3.2-vision-90b": dict(phase="14e_serve_llama_vision",
+                                 tag="serve_llama_vision", B=4, S=1024,
+                                 new=32, layers=5, engine=False, flash=4,
+                                 param_dtype="bfloat16")}
+#: 13b's peak allocated memory (PERF.md §5): no phase 14 may pass it
+FAMILY_PEAK_GB = 25.53
+#: phase 14f: the eight configs of those families at their smoke cuts with
+#: head dims 32, float32, card against CPU (gemma at 14 layers and zamba2
+#: at 10, so that tails exist; 50 prompt tokens pass the smoke window of 32)
+FAMILIES_CPU = dict(archs=("gemma3-27b", "gemma3-4b", "phi3-mini-3.8b",
+                           "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+                           "zamba2-7b", "musicgen-large",
+                           "llama-3.2-vision-90b"),
+                    layers={"gemma3-27b": 14, "gemma3-4b": 14,
+                            "zamba2-7b": 10},
+                    B=2, S=50, steps=6, head_dim=32, tol=1e-4)
+
+
+def family_flash_shapes():
+    """The flash shape of each prefill of phases 14a-14e, by its path in
+    the kernels line (gemma3-4b's local and global layers apart): phase 2
+    holds row 9 at each, the kernels line times each."""
+    out = {}
+    for arch, f in FAMILIES.items():
+        cfg = configs.get_config(arch)
+        c = dict(B=f["B"], S=f["S"], H=cfg.n_heads, Hk=cfg.n_kv_heads,
+                 D=cfg.head_dim)
+        if cfg.local_per_global:
+            out[f"{f['tag']}_local"] = dict(c, window=cfg.sliding_window)
+            out[f"{f['tag']}_global"] = dict(c, window=0)
+        else:
+            out[f["tag"]] = dict(c, window=cfg.sliding_window)
+    return out
 
 #: per source, the tensor-core instructions its SASS must hold: DMMA (FP64
 #: tensor cores) for the float64 sample tiles (rows 1-4, 7) and the gram of
@@ -3689,7 +3814,8 @@ def lm_kernel_checks(dev, errs):
 
     # the serving shape, mid-tile windows, and a ragged S with every
     # template width and a non-causal call
-    flash = [dict(c, causal=True) for c in FLASH_CHECKS] + [
+    flash = [dict(c, causal=True) for c in (
+        FLASH_CHECKS + list(family_flash_shapes().values()))] + [
         dict(B=2, S=129, H=4, Hk=4, D=32, window=0, causal=True),
         dict(B=1, S=384, H=8, Hk=1, D=128, window=0, causal=True),
         dict(B=1, S=256, H=4, Hk=2, D=64, window=0, causal=False)]
@@ -3701,7 +3827,11 @@ def lm_kernel_checks(dev, errs):
             got = flash_attention.flash_attention(q, k, v, **kw)
             want = ref.flash_attention(q, k, v, **kw)
             e = lm_compare("flash_attention", (got,), (want,), dtype)
-            record("flash_attention", e, dtype, shape, **kw)
+            repeat_on_poison("flash_attention", lambda: (
+                flash_attention.flash_attention(q, k, v, **kw),), (got,))
+            record("flash_attention", e, dtype, shape,
+                   repeat_bit_identical=True, **kw)
+            del q, k, v, got, want
     wkv = [WKV_CHECK, dict(B=1, S=32, H=2, D=32), dict(B=1, S=128, H=1, D=128)]
     for c in wkv:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3884,11 +4014,13 @@ def phase_serve(dev, arch):
         raise AssertionError(f"{arch} serve: tokens {out.shape} or logits "
                              "not finite")
     prompts = np.stack([r.prompt for r in reqs])
-    err = {"bfloat16": decode_vs_forward(cfg, eng.params, prompts,
-                                         out[:, 0], dev, logits[1]),
+    batch = {"tokens": torch.tensor(prompts, device=dev)}
+    first = torch.tensor(out[:, :1], device=dev)
+    err = {"bfloat16": decode_vs_forward(cfg, eng.params, batch, first,
+                                         logits[1]),
            "float32": decode_vs_forward(
-               configs.override(cfg, dtype="float32"), eng.params, prompts,
-               out[:, 0], dev)}
+               configs.override(cfg, dtype="float32"), eng.params, batch,
+               first)}
     for dt, e in err.items():
         if not e <= DECODE_TOL[arch][layers.dtype_of(dt)]:
             raise AssertionError(f"{arch} ({dt}): decode logits at position "
@@ -3925,25 +4057,6 @@ def serve_profiles(cfg, params, prompts, dev, steps=8):
                 c = lm.decode_step(cfg, params, c, {"tokens": nxt})[1]
         dec = profiled(decode)
     return {"prefill": pre, f"decode_{steps}_steps": dec}
-
-
-def decode_vs_forward(cfg, params, prompts, first, dev, got=None):
-    """The logits of the decode step that takes ``first`` (B,) after the
-    prefill of ``prompts`` (B, S) — ``got``, or computed here — against
-    ``lm.forward``'s last logits over the prompts and ``first``: max
-    |difference| over the largest |logit|."""
-    toks = torch.tensor(prompts, device=dev)
-    nxt = torch.tensor(first[:, None], device=dev)
-    with torch.inference_mode():
-        if got is None:
-            _, cache = lm.prefill(cfg, params, {"tokens": toks},
-                                  prompts.shape[1] + 1)
-            got = lm.decode_step(cfg, params, cache,
-                                 {"tokens": nxt})[0].cpu().numpy()
-        hidden, _ = lm.forward(cfg, params,
-                               {"tokens": torch.cat([toks, nxt], dim=1)})
-        want = lm.logits_last(cfg, params, hidden).cpu().numpy()
-    return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 def _leaves(tree):
@@ -4323,36 +4436,332 @@ def phase_train_card_vs_cpu(dev):
     return all_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 14a-14f: the other LM families
+# ---------------------------------------------------------------------------
+
+def flash_layers(cfg) -> int:
+    """The causal self-attention layers of ``cfg``: one flash launch each a
+    prefill (cross-attention layers take the plain chunked path)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return lm.zamba_units(cfg)[0]
+    if cfg.family == "vlm":
+        n_units, n_self = lm.vlm_units(cfg)
+        return n_units * n_self
+    return cfg.n_layers
+
+
+def family_inputs(cfg, B, S, rng, dev):
+    """A prefill batch on ``dev``: tokens (or stub frames) and, for vlm,
+    stub image embeddings, standard normal."""
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = torch.tensor(
+            rng.integers(0, cfg.vocab, size=(B, S), dtype=np.int32),
+            device=dev)
+    else:
+        batch["frames"] = torch.tensor(
+            rng.standard_normal((B, S, cfg.d_model), dtype=np.float32),
+            device=dev)
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.tensor(
+            rng.standard_normal((B, cfg.n_img_tokens, cfg.d_model),
+                                dtype=np.float32), device=dev)
+    return batch
+
+
+def step_key(cfg) -> str:
+    return "tokens" if cfg.embed_inputs else "frames"
+
+
+def decode_vs_forward(cfg, params, batch, step, got=None):
+    """The logits of the decode step that takes ``step`` (the next token or
+    frame) after the prefill of ``batch`` — ``got``, or computed here —
+    against ``lm.forward``'s last logits over the batch and ``step``: max
+    |difference| over the largest |logit|."""
+    key = step_key(cfg)
+    S = batch[key].shape[1]
+    with torch.inference_mode():
+        if got is None:
+            _, cache = lm.prefill(cfg, params, batch, S + 1)
+            got = lm.decode_step(cfg, params, cache,
+                                 {key: step})[0].cpu().numpy()
+        full = dict(batch, **{key: torch.cat([batch[key], step], dim=1)})
+        hidden, _ = lm.forward(cfg, params, full)
+        want = lm.logits_last(cfg, params, hidden).cpu().numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@contextlib.contextmanager
+def flash_windows(tally):
+    """Count the flash launches by window into ``tally`` (gemma's local and
+    global layers), through the wrapper that ``ops`` calls."""
+    real = flash_attention.flash_attention
+
+    def counted(q, k, v, *, causal=True, window=0):
+        tally[window] = tally.get(window, 0) + 1
+        return real(q, k, v, causal=causal, window=window)
+    flash_attention.flash_attention = counted
+    try:
+        yield
+    finally:
+        flash_attention.flash_attention = real
+
+
+def flash_only(name, launches, want):
+    """``want`` flash launches and no other kernel, or raise."""
+    others = {k: v for k, v in launches.items() if k != "flash_attention"}
+    if launches["flash_attention"] != want or any(others.values()):
+        raise AssertionError(f"{name}: launches {launches}, expected {want} "
+                             "of flash_attention and no other")
+
+
+def family_generate(cfg, params, batch, new, dev):
+    """``lm.prefill`` and ``new`` decode steps (greedy tokens, or stub
+    frames), timed with CUDA events: (prefill ms, decode ms, first decode
+    step's logits, its input)."""
+    key = step_key(cfg)
+    B, S = batch[key].shape[:2]
+    if cfg.embed_inputs:
+        frames = None
+    else:
+        frames = torch.randn((new, B, 1, cfg.d_model), device=dev,
+                             generator=torch.Generator(dev).manual_seed(2))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with torch.inference_mode():
+        ev[0].record()
+        logits, cache = lm.prefill(cfg, params, batch, S + new)
+        ev[1].record()
+        first_logits, first = None, None
+        for t in range(new):
+            nxt = (torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                   if frames is None else frames[t])
+            logits, cache = lm.decode_step(cfg, params, cache, {key: nxt})
+            if t == 0:
+                first_logits, first = logits, nxt
+        ev[2].record()
+    torch.cuda.synchronize()
+    return (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+            first_logits.cpu().numpy(), first)
+
+
+def phase_serve_family(dev, arch):
+    """An arch of ``FAMILIES`` served at its published width (module
+    docstring, phases 14a-14e).  Returns its launches (gemma: by window,
+    as its local and global paths)."""
+    f = FAMILIES[arch]
+    B, S, new = f["B"], f["S"], f["new"]
+    kw = {"n_layers": f["layers"]} if f["layers"] else {}
+    if "param_dtype" in f:
+        kw["param_dtype"] = f["param_dtype"]
+    cfg = launcher.serve_config(arch, **kw)
+    if flash_layers(cfg) != f["flash"]:
+        raise AssertionError(f"{arch}: {flash_layers(cfg)} flash layers")
+    torch.cuda.reset_peak_memory_stats(dev)
+    via_cli = None
+    if f["engine"] and not f["layers"]:
+        _build.reset_launches()
+        launcher.main(["--arch", arch])
+        torch.cuda.synchronize()
+        via_cli = dict(_build.LAUNCHES)
+        torch.cuda.empty_cache()
+        flash_only(f"{arch} launcher", via_cli, f["flash"])
+    params = lm.init_params(cfg, 0, dev)
+    rng = np.random.default_rng(1)
+    batch = family_inputs(cfg, B, S, rng, dev)
+    windows = {}
+    if f["engine"]:
+        eng = Engine(cfg, params, max_len=S + new, device=dev)
+        prompts = batch["tokens"].cpu().numpy()
+        reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts]
+        # warm-up at the same shapes (cuBLAS picks its kernels on first use)
+        eng.generate([Request(prompt=p, max_new_tokens=2) for p in prompts])
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with flash_windows(windows):
+            _, logits = eng.generate(reqs, return_logits=True)
+        wall = time.perf_counter() - t0
+        out = np.stack([r.out for r in reqs])
+        if (out.shape != (B, new) or not np.isfinite(logits).all()
+                or not ((out >= 0) & (out < cfg.vocab)).all()
+                or not np.array_equal(out[:, 0], logits[0].argmax(-1))):
+            raise AssertionError(f"{arch} serve: tokens {out.shape} or "
+                                 "logits not finite")
+        prefill_ms = eng.stats["prefill_ms"]
+        decode_ms = eng.stats["decode_ms"]
+        got, first = logits[1], torch.tensor(out[:, :1], device=dev)
+    else:
+        family_generate(cfg, params, batch, 2, dev)            # warm-up
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with flash_windows(windows):
+            prefill_ms, decode_ms, got, first = family_generate(
+                cfg, params, batch, new, dev)
+        wall = time.perf_counter() - t0
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{arch}: decode logits not finite")
+    launches = dict(_build.LAUNCHES)
+    flash_only(f"{arch} serve", launches, f["flash"])
+    # a decode step's logits against a full forward, bf16 and f32; MoE at
+    # a capacity where nothing drops
+    moe = cfg.family == "moe"
+    exact = ({"capacity_factor": cfg.n_experts / cfg.experts_per_tok}
+             if moe else {})
+    err = {}
+    for dt in ("bfloat16", "float32"):
+        c = configs.override(cfg, dtype=dt, **exact)
+        reuse = got if (dt == cfg.dtype and not moe) else None
+        err[dt] = decode_vs_forward(c, params, batch, first, reuse)
+        tol = DECODE_TOL[arch][layers.dtype_of(dt)]
+        if tol is not None and not err[dt] <= tol:
+            raise AssertionError(f"{arch} ({dt}): decode logits at position "
+                                 f"{S} vs forward: relative error "
+                                 f"{err[dt]:.3e} > {tol:.0e}")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not peak < FAMILY_PEAK_GB:
+        raise AssertionError(f"{arch}: peak {peak:.2f} GB, above 13b's "
+                             f"{FAMILY_PEAK_GB} GB")
+    emit({"phase": f["tag"], "arch": arch, "batch": B, "prompt_len": S,
+          "new_tokens": new, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+          "vocab": cfg.vocab, "dtype": cfg.dtype,
+          "param_dtype": cfg.param_dtype,
+          "params": sum(t.numel() for t in _leaves(params)),
+          "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms / new,
+          "decode_tokens_per_s": B * new / (decode_ms / 1e3),
+          "wall_s": wall, "peak_allocated_gb": peak,
+          "launches": launches, "launcher_launches": via_cli,
+          "flash_by_window": windows,
+          "decode_vs_forward_rel_err": err,
+          "decode_tol": {str(k): v for k, v in DECODE_TOL[arch].items()},
+          **({"moe_capacity_factor_compared": exact["capacity_factor"]}
+             if moe else {})})
+    if arch == "gemma3-4b":
+        w = cfg.sliding_window
+        if sorted(windows) != [0, w] or sum(windows.values()) != f["flash"]:
+            raise AssertionError(f"gemma3-4b flash by window {windows}")
+        return {"local": dict(launches, flash_attention=windows[w]),
+                "global": dict(launches, flash_attention=windows[0])}
+    return launches
+
+
+def phase_families_card_vs_cpu(dev):
+    """The configs of ``FAMILIES_CPU`` at their smoke cuts with head dims
+    32, in float32, the same weights on the card and on the CPU (module
+    docstring, phase 14f): prefill logits, every cache leaf and
+    teacher-forced decode logits, each within ``tol`` of its largest
+    |value|; one flash launch a causal self-attention layer of the card's
+    prefill and no other kernel.  Returns the card's launches."""
+    c = FAMILIES_CPU
+    B, S, steps = c["B"], c["S"], c["steps"]
+    worst, total = {}, None
+    for arch in c["archs"]:
+        kw = dict(dtype="float32", head_dim=c["head_dim"])
+        if arch in c["layers"]:
+            kw["n_layers"] = c["layers"][arch]
+        cfg = launcher.serve_config(arch, smoke=True, **kw)
+        p_card = lm.init_params(cfg, 4, dev)
+        rng = np.random.default_rng(5)
+        batch = family_inputs(cfg, B, S, rng, "cpu")
+        key = step_key(cfg)
+        if cfg.embed_inputs:
+            forced = torch.tensor(rng.integers(
+                0, cfg.vocab, size=(steps, B, 1), dtype=np.int32))
+        else:
+            forced = torch.tensor(rng.standard_normal(
+                (steps, B, 1, cfg.d_model), dtype=np.float32))
+        got = {}
+        for d, p in ((dev, p_card), ("cpu", lm.tree_to(p_card, "cpu"))):
+            _build.reset_launches()
+            with torch.inference_mode():
+                logits, cache = lm.prefill(
+                    cfg, p, {k: v.to(d) for k, v in batch.items()},
+                    S + steps)
+                launches = dict(_build.LAUNCHES)
+                # copies: decode writes the cache in place (on the CPU a
+                # tensor's numpy view would follow it)
+                first = {k: v.float().cpu().numpy().copy()
+                         for k, v in cache.items()}
+                lg = []
+                for t in range(steps):
+                    out, cache = lm.decode_step(cfg, p, cache,
+                                                {key: forced[t].to(d)})
+                    lg.append(out.cpu().numpy())
+            got[str(d)] = (logits.cpu().numpy(), first, np.stack(lg),
+                           launches)
+        (l_a, c_a, g_a, launches), (l_b, c_b, g_b, _) = (got[str(dev)],
+                                                         got["cpu"])
+        flash_only(f"{arch} card vs CPU prefill", launches,
+                   flash_layers(cfg))
+        errs = {"prefill_logits": float(np.abs(l_a - l_b).max()
+                                        / np.abs(l_b).max()),
+                "decode_logits": float(np.abs(g_a - g_b).max()
+                                       / np.abs(g_b).max())}
+        for k in c_b:
+            errs[f"cache.{k}"] = float(np.abs(c_a[k] - c_b[k]).max()
+                                       / max(np.abs(c_b[k]).max(), 1e-30))
+        worst[arch] = errs
+        total = launches if total is None else {
+            k: total[k] + v for k, v in launches.items()}
+    emit({"phase": "families_card_vs_cpu", **c, "errs": worst,
+          "launches": total})
+    bad = {a: {k: v for k, v in e.items() if not v <= c["tol"]}
+           for a, e in worst.items()}
+    if any(bad.values()):
+        raise AssertionError(f"families card vs CPU errors above "
+                             f"{c['tol']}: {bad}")
+    return total
+
+
 def lm_bound(flops, nbytes, dtype):
     t_ops = flops / LM_PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, window=0):
     """One PyTorch call of the same attention on (B, H, S, D) tensors made
-    contiguous beforehand: the yardstick, used nowhere in the port."""
+    contiguous beforehand: the yardstick, used nowhere in the port.  With
+    a window, an explicit boolean mask (keys j with i − window < j ≤ i)."""
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    if window <= 0:
+        return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def causal_pairs(S: int, window: int = 0) -> int:
+    """The (query, key) pairs a causal mask (and a window) keeps."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
 
 
 def lm_kernel_rows(dev, errs, launches):
     """Rows 9 and 10 of the ``kernels`` line: per path its launches and, at
     that path's shape and dtype, the kernel's, the plain version's and (row
     9) SDPA's times and the bound."""
-    def flash_work(B, S, H, Hk, D, dtype):
+    def flash_work(B, S, H, Hk, D, dtype, window=0):
         q, k, v = flash_inputs(B, S, H, Hk, D, dtype, dev)
-        pairs = S * (S + 1) // 2                   # unmasked (q, k), causal
+        pairs = causal_pairs(S, window)            # unmasked (q, k)
         b_ms, b_by = lm_bound(4.0 * B * H * pairs * D,
                               q.element_size() * 2 * B * S * D * (H + Hk),
                               dtype)
-        return {"shape": [B, S, H, Hk, D], "dtype": str(dtype),
+        kw = dict(causal=True, window=window)
+        return {"shape": [B, S, H, Hk, D], "window": window,
+                "dtype": str(dtype),
                 "ms": time_ms(lambda: flash_attention.flash_attention(
-                    q, k, v)),
-                "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v)),
+                    q, k, v, **kw)),
+                "plain_ms": time_ms(lambda: ref.flash_attention(q, k, v,
+                                                                **kw)),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(_sdpa(q, k, v))}
+                "library_ms": time_ms(_sdpa(q, k, v, window))}
 
     def wkv_work(B, S, H, D, dtype):
         a = wkv_inputs(B, S, H, D, dtype, dev)
@@ -4387,7 +4796,19 @@ def lm_kernel_rows(dev, errs, launches):
                                       SERVE["qwen2-0.5b"]["S"], *qh, bf16),
             "nn_fitness_qwen2": flash_work(NN["B"], NN["S"], *qh, bf16),
             "serve_card_vs_cpu": flash_work(c["B"], c["S"], *qh, f32),
-            "train_qwen2": flash_work(TRAIN["B"], TRAIN["S"], *qh, bf16)},
+            "train_qwen2": flash_work(TRAIN["B"], TRAIN["S"], *qh, bf16),
+            # the other families (14a-14f)
+            **{p: flash_work(*(c[k] for k in ("B", "S", "H", "Hk", "D")),
+                             bf16, window=c["window"])
+               for p, c in family_flash_shapes().items()},
+            # 14f: gemma3-4b's smoke local layer (head dim 32), float32
+            "families_card_vs_cpu": flash_work(
+                FAMILIES_CPU["B"], FAMILIES_CPU["S"], 4, 2,
+                FAMILIES_CPU["head_dim"], f32,
+                window=configs.smoke_config("gemma3-4b").sliding_window),
+            # phi3-mini's prefill shape, which phase 2 checks and no path
+            # runs (launches null)
+            UNDRIVEN: flash_work(1, 512, 32, 32, 96, bf16)},
         "wkv6_forward": {
             "serve_rwkv6": wkv_work(SERVE["rwkv6-3b"]["B"],
                                     SERVE["rwkv6-3b"]["S"], *rh, bf16),
@@ -4397,7 +4818,7 @@ def lm_kernel_rows(dev, errs, launches):
     rows = []
     for name, paths in work.items():
         for p, w in paths.items():
-            w["launches"] = launches[p][name]
+            w["launches"] = None if p == UNDRIVEN else launches[p][name]
         top = paths["serve_qwen2" if name == "flash_attention"
                     else "serve_rwkv6"]
         rows.append({"name": name, "route": "cuda",
@@ -4814,7 +5235,8 @@ def group_lm(dev, st):
 
 
 def group_train(dev, st):
-    """Phases 13a-13d: the dense descent and training."""
+    """Phases 13a-13d: the dense descent and training; then 14a-14f: the
+    other LM families served, and card against CPU."""
     L, P = st["launches"], st["paths"]
     L["descent_f8_n1000"], L["descent_card_vs_cpu"] = run_phase(
         st, "13a_descent", phase_descent, dev)
@@ -4828,12 +5250,24 @@ def group_train(dev, st):
     torch.cuda.empty_cache()
     L["train_card_vs_cpu"] = run_phase(st, "13d_train_card_vs_cpu",
                                        phase_train_card_vs_cpu, dev)
+    torch.cuda.empty_cache()
+    for arch, f in FAMILIES.items():
+        got = run_phase(st, f["phase"], phase_serve_family, dev, arch)
+        if arch == "gemma3-4b":
+            for part, counts in got.items():
+                L[f"{f['tag']}_{part}"] = counts
+        else:
+            L[f["tag"]] = got
+        torch.cuda.empty_cache()
+    L["families_card_vs_cpu"] = run_phase(st, "14f_families_card_vs_cpu",
+                                          phase_families_card_vs_cpu, dev)
 
 
 #: the phases between the build (phase 1) and the kernels line (phase 5),
 #: in five groups of about equal time (the phases' seconds with the five
 #: at once on an H100 80GB HBM3 at 700.00 W: 280-330 s a group, from 160-
-#: 190 s alone) and a sixth that trains (13a-13d).  Each group runs in a
+#: 190 s alone) and a sixth that trains (13a-13d) and serves the families
+#: of the other LM families (14a-14f).  Each group runs in a
 #: worker process of its own, all at once: a CMA-ES step is host-bound
 #: (the card is busy a third of it), so the workers share the card's idle
 #: time.  Phase 12's five parts come first, each in its own worker.

@@ -1,7 +1,8 @@
 """Model configuration: the port's copy of ``repro/configs/base.py``'s
-``ModelConfig`` (the same fields, defaults, ``layer_pattern`` and
-``n_params``).  The JAX package's shape cells (``ShapeSpec``, ``SHAPES``,
-``cells_for``) belong to its dry-run and are not copied."""
+``ModelConfig`` (the same fields, defaults, ``layer_pattern``,
+``n_params`` and ``n_active_params``).  The JAX package's shape cells
+(``ShapeSpec``, ``SHAPES``, ``cells_for``) belong to its dry-run and are
+not copied."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,7 +56,7 @@ class ModelConfig:
     # attention implementation: "naive" (query-chunked, materialised probs)
     # or "flash" (the flash attention kernel, kernels/flash_attention.py)
     attn_impl: str = "naive"
-    attn_batch_tp: bool = False     # mesh resharding: not ported
+    attn_batch_tp: bool = False     # mesh resharding: not ported (A.16)
 
     def __post_init__(self):
         if self.n_heads and not self.head_dim:
@@ -105,3 +106,14 @@ class ModelConfig:
                   + d * ff * (3 if self.glu else 2))
         n += per_layer * self.n_layers
         return n
+
+    def n_active_params(self) -> int:
+        """MoE: params touched per token; other families: ``n_params``."""
+        if self.family != "moe":
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        dense = self.n_params() - self.n_layers * self.n_experts * (
+            d * ff * (3 if self.glu else 2))
+        active_ff = self.n_layers * self.experts_per_tok * (
+            d * ff * (3 if self.glu else 2))
+        return dense + active_ff

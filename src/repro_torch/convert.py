@@ -89,7 +89,8 @@ def _tree(tree, device):
 def lm_params(cfg, tree, device) -> dict:
     """The JAX package's ``lm.init_params`` tree (numpy leaves) as the
     port's: the same nested keys, every leaf a tensor of the same shape and
-    dtype.  The tree must be of a family the port runs (``cfg``)."""
+    dtype, for every family.  ``cfg`` must be one the port runs
+    (``lm.check_supported``)."""
     from repro_torch.models import lm
     lm.check_supported(cfg)
     return _tree(tree, device)

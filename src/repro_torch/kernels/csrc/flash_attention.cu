@@ -38,6 +38,23 @@
 // loaded when no row of the block sees them, as pl.when(relevant) skips
 // them).
 //
+// Head dims 96, 112 and 256 (phi3-mini, zamba2's shared block, gemma3-4b):
+// the same kernel, its tiles laid in panels of the widest swizzle row that
+// divides D (wgmma_tma.cuh: three 64-byte panels a row at D = 96, seven
+// 32-byte ones at 112, four 128-byte ones at 256), one TMA box a panel, so
+// that no box is wider than its swizzle; S = Q K^T steps through D by k16
+// as before, and O += P V runs as products over column ranges of whole
+// panels (96 = 64 + 32, 112 = 64 + 32 + 16, 256 = 128 + 128) into the
+// matching registers of the one accumulator.  At D = 256 the O accumulator
+// is 128 f32 registers a thread, so a block has one consumer warpgroup
+// (64 q rows; 210 registers a thread, no spill) and a two-stage K/V ring
+// (161 KB of shared memory).  Bounds: gemma3-4b's prefill (B = 4, S =
+// 2048, H = 8, Hk = 4, D = 256) needs 68.8 GFLOP causal, 51.6 with its
+// 1024 window, against 101 MB: 0.070 and 0.052 ms at 989 TFLOP/s;
+// zamba2's shared block (4, 2048, 32, 32, 112) 120 GFLOP, 0.122 ms.  The
+// float32 body takes them with 4 threads a q row (D = 96, 112) or 8
+// (D = 256).
+//
 // For training, each kernel also writes the row statistic the backward
 // (flash_attention_bwd.cu) recomputes the probabilities from: the
 // log-sum-exp of the row's scaled logits, f32 (B, S, H), when the caller
@@ -66,8 +83,15 @@ using namespace tc;
 constexpr int BQ = 64;       // q rows per block
 constexpr int BKV = 64;      // K/V rows per shared-memory stage
 constexpr int KC = 16;       // keys per online-softmax step
-constexpr int G4 = 8;        // float4 groups per thread (32 dims)
 constexpr float NEG = -1e30f;
+
+// Threads per q row (a power of two, so that a row's partial dots sum by
+// xor shuffles inside a warp) and the float4 groups each holds: 32 dims a
+// thread at D = 32, 64, 128 and 256, 24 at D = 96, 28 at D = 112
+template <int D>
+constexpr int kTPR = D <= 32 ? 1 : (D <= 64 ? 2 : (D <= 128 ? 4 : 8));
+template <int D>
+constexpr int kG4 = D / (4 * kTPR<D>);
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -82,11 +106,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BQ * (D / 32)) flash_f32_kernel(
+__global__ void __launch_bounds__(BQ * kTPR<D>) flash_f32_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
     int S, int Skv, int H, int Hk, int causal, int window, float scale) {
-  constexpr int TPR = D / 32;            // threads per q row
+  constexpr int TPR = kTPR<D>;            // threads per q row
+  constexpr int G4 = kG4<D>;
   constexpr int NT = BQ * TPR;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);   // [BKV][D]
@@ -224,7 +249,7 @@ int launch_f32(const T* q, const T* k, const T* v, T* o, float* lse, int B,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  flash_f32_kernel<T, D><<<grid, BQ * (D / 32), smem, stream>>>(
+  flash_f32_kernel<T, D><<<grid, BQ * kTPR<D>, smem, stream>>>(
       q, k, v, o, lse, S, Skv, H, Hk, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -233,19 +258,27 @@ int launch_f32(const T* q, const T* k, const T* v, T* o, float* lse, int B,
 // ---- bfloat16: TMA and wgmma ------------------------------------------------
 
 constexpr int WG_ROWS = 64;                 // q rows per consumer warpgroup
-constexpr int CONSUMERS = 2;                // consumer warpgroups per block
-constexpr int BQ16 = WG_ROWS * CONSUMERS;   // q rows per block
 constexpr int BKV16 = 64;                   // K/V rows per stage
-constexpr int KV_STAGES = 3;
-constexpr int TC_THREADS = CONSUMERS * 128 + 32;
 
-// A block's shared memory: the consumers' Q tiles and the K and V rings,
-// and 1 KB to align the first tile for the 128-byte swizzle
+// A block's plan at head dim D: two consumer warpgroups and a three-stage
+// K/V ring up to D = 128; at D = 256 one warpgroup (its O accumulator
+// alone is 128 f32 registers a thread, so two would not fit the SM's
+// register file beside their logits and P) and two stages (a 64-row tile
+// is 32 KB: Q, two K and two V tiles take 161 KB of the 227)
 template <int D>
-constexpr int SMEM = (CONSUMERS + 2 * KV_STAGES) * Tile<D>::BYTES + 1024;
+struct Plan {
+  static constexpr int CONSUMERS = D > 128 ? 1 : 2;
+  static constexpr int KV_STAGES = D > 128 ? 2 : 3;
+  static constexpr int BQ = WG_ROWS * CONSUMERS;         // q rows a block
+  static constexpr int THREADS = CONSUMERS * 128 + 32;
+  // the consumers' Q tiles and the K and V rings, and 1 KB to align the
+  // first tile for the 128-byte swizzle
+  static constexpr int SMEM =
+      (CONSUMERS + 2 * KV_STAGES) * Tile<D>::BYTES + 1024;
+};
 
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(Plan<D>::THREADS, D <= 64 ? 2 : 1)
     flash_bf16_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
@@ -253,6 +286,9 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 2 : 1)
     float* __restrict__ lse, int S, int Skv, int H, int Hk, int causal,
     int window, float scale) {
   using Tl = Tile<D>;
+  constexpr int CONSUMERS = Plan<D>::CONSUMERS;
+  constexpr int KV_STAGES = Plan<D>::KV_STAGES;
+  constexpr int BQ16 = Plan<D>::BQ;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * KV_STAGES];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -445,13 +481,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if ((err = tensor_map<D>(&tq, q, B, S, H)) != 0) return err;
   if ((err = tensor_map<D>(&tk, k, B, Skv, Hk)) != 0) return err;
   if ((err = tensor_map<D>(&tv, v, B, Skv, Hk)) != 0) return err;
-  const int smem = SMEM<D>;
+  const int smem = Plan<D>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(B * H, (S + BQ16 - 1) / BQ16);
-  flash_bf16_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (S + Plan<D>::BQ - 1) / Plan<D>::BQ);
+  flash_bf16_kernel<D><<<grid, Plan<D>::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Skv, H, Hk, causal,
       window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -485,8 +521,17 @@ int dispatch(bool bf16, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<64>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
                         window, scale, st);
+    case 96:
+      return launch<96>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                        window, scale, st);
+    case 112:
+      return launch<112>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                         window, scale, st);
     case 128:
       return launch<128>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
+                         window, scale, st);
+    case 256:
+      return launch<256>(bf16, q, k, v, o, lse, B, S, Skv, H, Hk, causal,
                          window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,6 +1,7 @@
 // Shared pieces of the bf16 flash attention kernels (flash_attention.cu's
 // forward, flash_attention_bwd.cu's backward): bf16 tiles of 64 rows laid
-// out by TMA with the 128-byte (D = 32: 64-byte) swizzle, the mbarriers
+// out by TMA in panels of the widest swizzle row that divides D (128 bytes
+// at D = 64, 128, 256; 64 at D = 32, 96; 32 at D = 112), the mbarriers
 // that report them, the 4-d tensor maps over (D, heads, S, B), wgmma's
 // shared-memory descriptors and products, and the SFU's exp2.
 #pragma once
@@ -18,14 +19,19 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // A tile of 64 rows of D bf16 in shared memory: D/PW panels of 64 rows of
 // PW elements (one swizzle row each), as one TMA box per panel lays them.
+// PW is the widest of 64, 32 and 16 that divides D: a TMA box is at most
+// one swizzle row wide, so D = 96 and 112 (192 and 224 bytes a row) are
+// three 64-byte and seven 32-byte panels.
 template <int D>
 struct Tile {
-  static constexpr int PW = D < 64 ? D : 64;
+  static_assert(D % 16 == 0 && D <= 256, "head dim: a multiple of 16 to 256");
+  static constexpr int PW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
   static constexpr int PANELS = D / PW;
-  static constexpr int ROW_BYTES = PW * 2;                  // 64 or 128
+  static constexpr int ROW_BYTES = PW * 2;                  // 128, 64 or 32
   static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
   static constexpr int BYTES = PANELS * PANEL_BYTES;
-  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : 2;  // wgmma swizzle
+  // wgmma's swizzle mode: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : (ROW_BYTES == 64 ? 2 : 3);
   static constexpr uint32_t SBO = 8 * ROW_BYTES;
   // byte offset of the k16 step over columns [16 kk, 16 kk + 16), the
   // tile read as a K-major operand
@@ -175,6 +181,18 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
 // d (64 x N, f32) += A B over one k16 step, A from registers (the
 // accumulator layout of a 64 x 16 block, packed in bf16 pairs), B N-major
 // in shared memory through the transpose bit
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -237,7 +255,25 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// acc (64 x D) += A B with B (16 x D) N-major: the width's product
+// The accumulator's columns [c, c + N) as an m64nN accumulator of its own:
+// wgmma keeps 4 registers per 8 columns, so they are acc[c/2 .. c/2 + N/2)
+template <int N, int M>
+__device__ __forceinline__ float (&cols(float (&acc)[M], int c))[N / 2] {
+  return *reinterpret_cast<float(*)[N / 2]>(&acc[c / 2]);
+}
+
+// The descriptor ``db`` of a tile read through the transpose bit, moved to
+// its column c (a multiple of the panel width): c / PW panels further on,
+// in the descriptor's 16-byte units
+template <int D>
+__device__ __forceinline__ uint64_t at_col(uint64_t db, int c) {
+  using Tl = Tile<D>;
+  return db + static_cast<uint64_t>((c / Tl::PW) * Tl::PANEL_BYTES >> 4);
+}
+
+// acc (64 x D) += A B with B (16 x D) N-major: one product where an N of
+// D's width is at hand, else products over column ranges of the panels
+// (96 = 64 + 32, 112 = 64 + 32 + 16, 256 = 128 + 128)
 template <int D>
 __device__ __forceinline__ void rs_mma(float (&acc)[D / 2],
                                        const uint32_t (&a)[4], uint64_t db) {
@@ -245,8 +281,19 @@ __device__ __forceinline__ void rs_mma(float (&acc)[D / 2],
     wgmma_rs_m64n32(acc, a, db, 1);
   } else if constexpr (D == 64) {
     wgmma_rs_m64n64(acc, a, db, 1);
-  } else {
+  } else if constexpr (D == 128) {
     wgmma_rs_m64n128(acc, a, db, 1);
+  } else if constexpr (D == 96) {
+    wgmma_rs_m64n64(cols<64>(acc, 0), a, db, 1);
+    wgmma_rs_m64n32(cols<32>(acc, 64), a, at_col<D>(db, 64), 1);
+  } else if constexpr (D == 112) {
+    wgmma_rs_m64n64(cols<64>(acc, 0), a, db, 1);
+    wgmma_rs_m64n32(cols<32>(acc, 64), a, at_col<D>(db, 64), 1);
+    wgmma_rs_m64n16(cols<16>(acc, 96), a, at_col<D>(db, 96), 1);
+  } else {
+    static_assert(D == 256, "rs_mma: head dims 32, 64, 96, 112, 128, 256");
+    wgmma_rs_m64n128(cols<128>(acc, 0), a, db, 1);
+    wgmma_rs_m64n128(cols<128>(acc, 128), a, at_col<D>(db, 128), 1);
   }
 }
 
@@ -326,8 +373,9 @@ int tensor_map(CUtensorMap* map, const void* ptr, int B, int seq,
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Tl::ROW_BYTES == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                           : CU_TENSOR_MAP_SWIZZLE_64B,
+      Tl::ROW_BYTES == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : Tl::ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,9 +4,10 @@
 ``flash_attention`` replaces ``repro/kernels/flash_attention.py::
 flash_attention``: GQA attention forward with f32 online softmax, causal
 and sliding-window masks in index order, q (B, S, H, D) and k/v
-(B, S_kv, H_k, D) in bfloat16 or float32, D ∈ {32, 64, 128}; the output
-has q's dtype.  One launch: bfloat16 runs on the tensor cores (TMA-fed
-wgmma tiles), float32 on scalar FMAs.  The plain PyTorch version is
+(B, S_kv, H_k, D) in bfloat16 or float32, D ∈ ``HEAD_DIMS`` (32, 64, 96,
+112, 128, 256: every head dim of the repo's configs); the output has q's
+dtype.  One launch: bfloat16 runs on the tensor cores (TMA-fed wgmma
+tiles), float32 on scalar FMAs.  The plain PyTorch version is
 ``ref.flash_attention``.
 
 The wrapper takes CUDA tensors only — it checks device, dtype, shape,
@@ -22,8 +23,11 @@ counterpart: the JAX package's flash path differentiates with
 ``"flash_attention_bwd"``: bfloat16 on the tensor cores (a row-statistics
 pass, the dq pass, the dk/dv pass over one query head a block and the sum
 of each query group's per-head partials in head order), float32 on scalar
-FMAs.  ``FlashAttention`` is the autograd function over the pair; its
-plain version is ``ref.flash_attention_bwd``.
+FMAs, at D ∈ ``BWD_HEAD_DIMS`` (32, 64, 128) only: the other head dims
+raise ``NotImplementedError`` (ROADMAP.md, queue A item 18).
+``FlashAttention`` is the autograd function over the pair, and raises at
+those head dims before its forward launches; its plain version is
+``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,10 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _P]
 _BWD_ARGS = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P]
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 112, 128, 256)
+#: the head dims of the backward kernel; training at the others is queue A
+#: item 18
+BWD_HEAD_DIMS = (32, 64, 128)
 #: the TPU kernel's KV block: non-causal attention needs S_kv a multiple
 #: of min(BKV, S_kv), as ``repro/kernels/flash_attention.py:128`` requires
 BKV = 128
@@ -65,6 +72,16 @@ def check_contract(causal: bool, Skv: int) -> None:
     if not causal and Skv % min(BKV, Skv):
         raise NotImplementedError(
             "non-causal flash kernel requires S_kv % bkv == 0")
+
+
+def check_bwd_head_dim(D: int) -> None:
+    """Raise ``NotImplementedError`` for a head dim the backward kernel does
+    not take."""
+    if D not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash attention's backward at head dim {D} is not ported "
+            f"(the kernel takes {BWD_HEAD_DIMS}; ROADMAP.md, queue A item "
+            "18)")
 
 
 def _check(q, k, v, causal: bool):
@@ -124,6 +141,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     inputs' dtype.  One call, counted once: float32 two launches (dq with
     the row sums do·o into scratch, then dk and dv), bfloat16 four (the
     row statistics, dq, per-head partials of dk and dv, their sum)."""
+    check_bwd_head_dim(q.shape[-1])
     B, S, H, D, Skv, Hk = _check(q, k, v, causal)
     dt, dev = q.dtype, q.device
     qshape, kshape = (B, S, H, D), (B, Skv, Hk, D)
@@ -152,10 +170,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 class FlashAttention(torch.autograd.Function):
     """``flash_attention`` with its gradient: the forward launches the
     forward kernel with the row statistics, the backward
-    ``flash_attention_bwd``.  Saves q, k, v, o and lse."""
+    ``flash_attention_bwd``.  Saves q, k, v, o and lse.  A head dim the
+    backward does not take raises before the forward launches."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        check_bwd_head_dim(q.shape[-1])
         o, lse = flash_attention_stats(q, k, v, causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window

@@ -6,8 +6,11 @@ engine, on the card by default.
 
 Without ``--smoke`` it serves the arch at its published width and depth,
 with random weights from seed 0.  Attention archs serve with
-``attn_impl="flash"``, so every prefill layer runs the flash attention
-kernel (``serve_config``).
+``attn_impl="flash"``, so every causal self-attention layer of a prefill
+runs the flash attention kernel (``serve_config``).  As in the JAX
+package, archs fed by a stub frontend (``musicgen-large``'s frames,
+``llama-3.2-vision-90b``'s image embeddings) are refused: ``lm.prefill``
+and ``lm.decode_step`` serve them.
 """
 from __future__ import annotations
 
@@ -44,6 +47,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = serve_config(args.arch, args.smoke)
+    if not cfg.embed_inputs or cfg.family == "vlm":
+        raise SystemExit(f"{args.arch}: serve CLI demo supports token-input "
+                         "archs (frontend-stub archs are covered by the "
+                         "dry-run serve cells)")
     device = resolve_device(args.device)
     params = lm.init_params(cfg, 0, device)
     eng = Engine(cfg, params, max_len=args.max_len, device=device)

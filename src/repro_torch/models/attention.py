@@ -9,11 +9,16 @@ materialised per (q_chunk × kv) tile, and sliding-window layers read only a
 package's flash path is its jnp twin ``models/flash_xla.flash_mha``; on a
 TPU its config names the Pallas kernel this one replaces.
 
+Cross and non-causal attention take the query-chunked path whatever
+``impl`` is, as in the JAX package, whose flash path serves causal
+self-attention only.
+
 Decode reads a pre-allocated KV cache ring.  ``decode_step`` writes the new
 token's K and V into the cache in place (the JAX package returns a new
-cache); the returned ``KVCache`` holds the same tensors.  The mesh
-resharding (``batch_tp``) and the cross-attention decode helpers are not
-ported (ROADMAP.md, queue A item 14).
+cache); the returned ``KVCache`` holds the same tensors.  Cross-attention
+decodes against a K/V set computed once (``precompute_cross_kv``,
+``cross_decode``).  The mesh resharding (``batch_tp``) is not ported
+(ROADMAP.md, queue A item 16).
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ class AttnConfig(NamedTuple):
     causal: bool = True
     q_chunk: int = 1024
     impl: str = "naive"          # naive | flash
-    batch_tp: bool = False       # mesh resharding: not ported
+    batch_tp: bool = False       # mesh resharding: not ported (A.16)
 
 
 def init_attn_params(gen, cfg: AttnConfig, param_dtype, device,
@@ -116,7 +121,7 @@ def attend_full(p: dict, cfg: AttnConfig, x: torch.Tensor,
     if cfg.batch_tp:
         raise NotImplementedError("attention batch resharding (batch_tp) "
                                   "needs the mesh slice (ROADMAP.md, queue "
-                                  "A item 14)")
+                                  "A item 16)")
     B, S, _ = x.shape
     cross = kv_x is not None
     kv_x = x if kv_x is None else kv_x
@@ -208,3 +213,27 @@ def decode_step(p: dict, cfg: AttnConfig, x: torch.Tensor, pos: torch.Tensor,
     out = _sdpa_chunk(q, k, v, mask, scale)
     y = _out(out, p["wo"], x.dtype)
     return y, KVCache(k=k, v=v, length=new_len)
+
+
+def cross_decode(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                 kv_k: torch.Tensor, kv_v: torch.Tensor) -> torch.Tensor:
+    """Attention of x (B, S, d) over a fixed (precomputed) cross-attention
+    K/V set (B, N, Hk, Dh): no mask, no positions."""
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    dt = x.dtype
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+    out = _sdpa_chunk(q, kv_k, kv_v, None, scale)
+    return _out(out, p["wo"], dt)
+
+
+def precompute_cross_kv(p: dict, cfg: AttnConfig, kv_x: torch.Tensor):
+    """The cross-attention K and V (B, N, Hk, Dh) of kv_x (B, N, d)."""
+    dt = kv_x.dtype
+    k = _proj(kv_x, p["wk"])
+    v = _proj(kv_x, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return k, v

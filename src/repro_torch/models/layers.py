@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, rotary positions, activations and
-parameter init.  Port of ``repro/models/layers.py``.
+"""Shared model building blocks: norms, rotary and sinusoidal positions,
+activations and parameter init.  Port of ``repro/models/layers.py``.
 
 Parameters are plain nested dicts of tensors, with the JAX package's keys
 and shapes.  Init draws from an explicit ``torch.Generator`` on the target
@@ -126,6 +126,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """positions (B, S) → (B, S, d) classic transformer sin/cos table, f32."""
+    half = d_model // 2
+    log_base = float(torch.log(torch.tensor(10000.0, dtype=torch.float32)))
+    freqs = torch.exp(-log_base * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

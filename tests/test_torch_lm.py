@@ -28,33 +28,13 @@ from repro_torch.models import layers as tl
 from repro_torch.models import lm as tlm
 from repro_torch.models import mlp as tmlp
 from repro_torch.models import rwkv6 as tr
+from torch_lm_parity import OP_TOL, check_model
+from torch_lm_parity import cfg_pair as _cfg_pair
+from torch_lm_parity import close as _close
+from torch_lm_parity import pair as _pair
 from torch_threads import one_thread  # noqa: F401
 
 DTYPES = ["float32", "bfloat16"]
-OP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-MODEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-
-
-def _np(x):
-    """A JAX array or a tensor as float64 numpy."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().float().cpu().numpy().astype(np.float64)
-    return np.asarray(jnp.asarray(x, jnp.float32), np.float64)
-
-
-def _close(got, want, tol, scale=None):
-    """max |got − want| ≤ tol · (largest |want|, or ``scale``)."""
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape, (got.shape, want.shape)
-    s = np.abs(want).max() if scale is None else scale
-    err = np.abs(got - want).max() / max(s, 1e-30)
-    assert err <= tol, f"relative error {err:.3e} > {tol:.0e}"
-
-
-def _pair(a, dtype):
-    """One numpy array as (JAX array, tensor) in ``dtype``."""
-    return (jnp.asarray(a, jnp.float32).astype(jnp.dtype(dtype)),
-            torch.tensor(a, dtype=torch.float32).to(tl.dtype_of(dtype)))
 
 
 def _tree_pair(tree, dtype="float32"):
@@ -64,24 +44,6 @@ def _tree_pair(tree, dtype="float32"):
     return jt, convert.lm_params(tconfigs.smoke_config("qwen2-0.5b"),
                                  jax.tree_util.tree_map(np.asarray, jt),
                                  device="cpu")
-
-
-def _jax_params(cfg, seed=0, noise=0.05):
-    """The JAX package's init at ``cfg``, every leaf nudged by seeded noise
-    (so zero-initialised leaves — biases, bonus u, the LoRA up-projections —
-    take part), as numpy."""
-    p = jax.tree_util.tree_map(np.asarray, jlm.init_params(
-        cfg, jax.random.PRNGKey(seed)))
-    rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: (a + noise * rng.standard_normal(a.shape)).astype(a.dtype),
-        p)
-
-
-def _cfg_pair(arch, dtype, **kw):
-    jc = dataclasses.replace(j_smoke_config(arch), dtype=dtype, **kw)
-    tc = tconfigs.override(tconfigs.smoke_config(arch), dtype=dtype, **kw)
-    return jc, tc
 
 
 # ---------------------------------------------------------------------------
@@ -314,56 +276,15 @@ LM_CASES = [("qwen2-0.5b", "flash"), ("qwen2-0.5b", "naive"),
 def test_lm_forward_loss_prefill_decode(arch, attn, dtype):
     """forward, chunked_ce, loss, prefill (logits and every cache leaf) and
     three decode steps, through ``convert.lm_params`` and
-    ``convert.lm_cache``."""
-    jc, tc = _cfg_pair(arch, dtype, attn_impl=attn)
-    p = _jax_params(jc)
-    jp = jax.tree_util.tree_map(jnp.asarray, p)
-    tp = convert.lm_params(tc, p, device="cpu")
-    rng = np.random.default_rng(8)
-    toks = rng.integers(0, jc.vocab, size=(2, 37)).astype(np.int32)
-    labels = rng.integers(0, jc.vocab, size=(2, 37)).astype(np.int32)
-    labels[0, :3] = -1
-    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    tb = {"tokens": torch.tensor(toks), "labels": torch.tensor(labels)}
-    tol = MODEL_TOL[dtype]
-
-    # the JAX side jitted: one compile per function beats op-by-op dispatch
-    j_loss = jax.jit(lambda q, b: (jlm.forward(jc, q, b)[0],
-                                   *jlm.loss(jc, q, b)))
-    j_prefill = jax.jit(lambda q, b: jlm.prefill(jc, q, b, 48))
-    j_decode = jax.jit(lambda q, c, b: jlm.decode_step(jc, q, c, b))
-    jh, jloss, jm = j_loss(jp, jb)
-    th, _ = tlm.forward(tc, tp, tb)
-    _close(th, jh, tol)
-    tloss, tm = tlm.loss(tc, tp, tb)
-    _close(tloss, jloss, tol)
-    _close(tm["ce"], jm["ce"], tol)
-
-    jl_, jcache = j_prefill(jp, {"tokens": jb["tokens"]})
-    tl_, tcache = tlm.prefill(tc, tp, {"tokens": tb["tokens"]}, 48)
-    scale = np.abs(_np(jl_)).max()
-    _close(tl_, jl_, tol, scale)
-    assert set(tcache) == set(jcache)
-    for k in jcache:
-        assert tuple(tcache[k].shape) == jcache[k].shape, k
-        _close(tcache[k], jcache[k], tol)
-    # decode from the JAX package's cache carried across
-    tcache = convert.lm_cache(jax.tree_util.tree_map(np.asarray, jcache),
-                              device="cpu")
-    for t in range(3):
-        nxt = rng.integers(0, jc.vocab, size=(2, 1)).astype(np.int32)
-        jl_, jcache = j_decode(jp, jcache, {"tokens": jnp.asarray(nxt)})
-        tl_, tcache = tlm.decode_step(tc, tp, tcache,
-                                      {"tokens": torch.tensor(nxt)})
-        _close(tl_, jl_, tol, scale)
-        for k in jcache:
-            _close(tcache[k], jcache[k], tol)
+    ``convert.lm_cache`` (``torch_lm_parity.check_model``)."""
+    check_model(*_cfg_pair(arch, dtype, attn_impl=attn))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", tconfigs.ARCHS)
 def test_init_params_full_tree(arch):
     """At the published config: the port's tree (built on the meta device,
-    nothing allocated) has the JAX package's keys, shapes and dtypes."""
+    nothing allocated) has the JAX package's keys, shapes and dtypes, and
+    the config's parameter counts and layer pattern are JAX's."""
     want = jax.eval_shape(lambda k: jlm.init_params(j_get_config(arch), k),
                           jax.random.PRNGKey(0))
     cfg = tconfigs.get_config(arch)
@@ -380,27 +301,28 @@ def test_init_params_full_tree(arch):
     assert sum(v.numel() for v in flat_g.values()) == sum(
         int(np.prod(w.shape)) for w in flat_w.values())
     assert cfg.n_params() == j_get_config(arch).n_params()
+    assert cfg.n_active_params() == j_get_config(arch).n_active_params()
     assert cfg.layer_pattern == j_get_config(arch).layer_pattern
 
 
 def test_registry_and_unported_families_raise():
-    assert tconfigs.ARCHS == ("qwen2-0.5b", "rwkv6-3b")
+    """The registry is the JAX package's ten archs in its order, every
+    config and smoke config equal to JAX's; what is still refused is
+    attention's mesh resharding (queue A item 16)."""
+    from repro import configs as jconfigs
+    assert tconfigs.ARCHS == jconfigs.ARCHS
     for name in tconfigs.ARCHS:
         assert tconfigs.get_config(name) == _port_cfg(j_get_config(name))
         assert tconfigs.smoke_config(name) == _port_cfg(j_smoke_config(name))
-    for name in ("gemma3-4b", "phi3.5-moe-42b-a6.6b", "zamba2-7b",
-                 "llama-3.2-vision-90b", "musicgen-large"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tconfigs.get_config(name)
-    base = tconfigs.smoke_config("qwen2-0.5b")
-    for kw in (dict(family="moe"), dict(family="hybrid"), dict(family="vlm"),
-               dict(family="audio"), dict(local_per_global=5),
-               dict(pos="sinusoidal"), dict(embed_inputs=False)):
-        cfg = tconfigs.override(base, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_params(cfg, 0, "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tlm.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        tconfigs.get_config("gpt-2")
+    cfg = tconfigs.override(tconfigs.smoke_config("qwen2-0.5b"),
+                            attn_batch_tp=True)
+    for call in (lambda: tlm.init_params(cfg, 0, "cpu"),
+                 lambda: tlm.init_cache(cfg, 1, 8, device="cpu"),
+                 lambda: convert.lm_params(cfg, {}, "cpu")):
+        with pytest.raises(NotImplementedError, match="queue A item 16"):
+            call()
 
 
 def test_lm_converters_require_a_device():

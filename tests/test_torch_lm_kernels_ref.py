@@ -173,6 +173,48 @@ def test_wkv_ragged_sequence_refused():
         ops.wkv_chunked(r, k, v, w, u, s0)
 
 
+NEW_HEAD_DIMS = [96, 112, 256]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("S,window", [(128, 0), (256, 100), (129, 50)])
+def test_flash_attention_new_head_dims(dtype, D, S, window):
+    """The head dims of phi3-mini (96), zamba2's shared block (112) and
+    gemma3-4b (256): causal, windowed (mid-tile), ragged with a window,
+    against the JAX package's Pallas kernel in interpret mode and its
+    oracle."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(1, S, 4, 2, D, dtype, D + S)
+    kw = dict(causal=True, window=window)
+    got = ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _allclose(got, j_flash(jq, jk, jv, interpret=True, bq=64, bkv=64, **kw),
+              TOL[dtype])
+    _allclose(got, jref.flash_attention(jq, jk, jv, **kw), TOL[dtype])
+
+
+def test_flash_backward_refuses_new_head_dims_before_any_launch(monkeypatch):
+    """Training at head dims 96, 112 and 256 is queue A item 18: the
+    autograd function and the backward wrapper raise before anything is
+    launched (and before the forward runs)."""
+    from repro_torch.kernels import _build
+
+    def boom(*a, **kw):
+        raise AssertionError("a kernel was launched")
+    monkeypatch.setattr(_build, "launch", boom)
+    monkeypatch.setattr(t_flash, "flash_attention_stats", boom)
+    for D in NEW_HEAD_DIMS:
+        (_, tq), (_, tk), (_, tv) = _qkv(1, 64, 2, 1, D, "float32", D)
+        tq.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="queue A item 18"):
+            t_flash.FlashAttention.apply(tq, tk, tv, True, 0)
+        lse = torch.zeros(1, 64, 2)
+        with pytest.raises(NotImplementedError, match="queue A item 18"):
+            t_flash.flash_attention_bwd(tq, tk, tv, tq, lse, tq)
+    assert t_flash.HEAD_DIMS == (32, 64, 96, 112, 128, 256)
+    assert t_flash.BWD_HEAD_DIMS == (32, 64, 128)
+
+
 def test_eager_tier_takes_the_plain_version(monkeypatch):
     """``impl="eager"`` never reaches a kernel wrapper, whatever the device;
     a kernel tier on a CPU tensor takes the plain version too."""

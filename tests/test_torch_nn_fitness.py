@@ -32,15 +32,19 @@ def test_synthetic_tokens_bit_identical(shard, num_shards):
         td = SyntheticTokens(configs.smoke_config(arch), seq_len=24,
                              global_batch=4, shard_index=shard,
                              num_shards=num_shards, seed=3)
+        cfg = configs.smoke_config(arch)
+        inputs = "tokens" if cfg.embed_inputs else "frames"
+        keys = {inputs, "labels"} | ({"img_embeds"} if cfg.family == "vlm"
+                                     else set())
         for step in (0, 7, 999):
             jb, tb = jd.batch_at(step), td.batch_at(step)
-            assert set(jb) == set(tb) == {"tokens", "labels"}
+            assert set(jb) == set(tb) == keys
             for k in jb:
                 assert jb[k].dtype == tb[k].dtype
                 np.testing.assert_array_equal(jb[k], tb[k])
         it = td.iterate(start_step=7)
-        np.testing.assert_array_equal(next(it)["tokens"],
-                                      td.batch_at(7)["tokens"])
+        np.testing.assert_array_equal(next(it)[inputs],
+                                      td.batch_at(7)[inputs])
         it.close()
 
 
